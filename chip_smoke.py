@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``merlin_zkevm_prover_tpu_torch/csrc`` and runs
+five phases, each of which raises on failure (nothing falls back to the CPU,
+and the exit code is non-zero unless every phase passed):
+
+  device   the card's name and power limit, versions, the kernel build
+  kernels  every kernel against its plain PyTorch version on the card, exact
+           equality, at the main path's shapes and at edge shapes, with times
+  golden   smoke proofs at n_bits 5 and 13 proven on the card equal, field by
+           field, the proofs the JAX prover wrote (tests/data/)
+  commit   coset LDE + Poseidon Merkle tree of a seeded 2^17 x 665 matrix (the
+           zkEVM's cm1 width), checked against the plain LDE and python-int
+           openings
+  prove    the main path: one STARK proof of the smoke circuit at n_bits 17
+           through the kernels, verified; launch counters are set to 0 just
+           before and read just after
+
+Output: one JSON object per line.  The line before the last lists every
+kernel with its launches on the main path, its error against the plain
+version, its time, the plain version's time and the card's bound for the
+same work.  The last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+It imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Peak rates of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM, and
+# 67 TFLOP/s float32 outside the tensor cores, i.e. 33.5e12 multiply-add
+# lanes/s on 128 FP32 lanes per SM.  The data sheet has no integer row; a
+# Hopper SM has 64 INT32 lanes, half the FP32 lanes, so the peak 32-bit
+# integer multiply-add rate is taken as 16.75e12 /s.  One 64x64 -> 128 bit
+# product is four 32x32 -> 64 multiply-adds.
+MEM_BYTES_PER_S = 3.35e12
+IMAD32_PER_S = 33.5e12 / 2
+IMAD_PER_MUL64 = 4
+# Poseidon permutation, counted as the function needs it, not as the kernel
+# does it.  S-boxes: x^7 is 4 field multiplies, on 12 lanes in the 8 full
+# rounds and on one lane in the 22 partial rounds.  Linear layer: in a full
+# round the 12 x 12 (+1 diagonal) small-coefficient MDS, two 32-bit
+# multiply-adds (one per half of the word) for each entry; the partial rounds
+# in their sparse factorisation (the C/S/M/P matrices of the C++ zkevm-prover
+# and Plonky2), whose entries are full field elements: 12 + 11 field
+# multiplies a round and one 11 x 11 matrix before the first.  The kernel
+# itself runs the dense MDS in all 30 rounds (30 * 2 * 145 = 8700
+# multiply-adds), so the bound is below what its own algorithm could reach.
+PERM_SBOX_MUL64 = 4 * (8 * 12 + 22)
+PERM_MUL64 = PERM_SBOX_MUL64 + 22 * (12 + 11) + 11 * 11
+PERM_IMAD32 = 8 * 2 * (12 * 12 + 1)
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def bound_ms(n_bytes: float, mul64: float, imad32: float = 0.0):
+    t_mem = n_bytes / MEM_BYTES_PER_S
+    t_ops = (mul64 * IMAD_PER_MUL64 + imad32) / IMAD32_PER_S
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+
+
+def time_ms(fn, runs: int) -> float:
+    """Median over `runs` single calls, CUDA events, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest |a - b| over the field elements read as unsigned words (0 is
+    the only acceptable value: the arithmetic is exact)."""
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if torch.equal(a, b):
+        return 0
+    au, bu = a.cpu().numpy().view(np.uint64), b.cpu().numpy().view(np.uint64)
+    return int(np.max(np.where(au > bu, au - bu, bu - au)))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 1
+
+    from merlin_zkevm_prover_tpu_torch.models.smoke import build_smoke_air
+    from merlin_zkevm_prover_tpu_torch.ops import cuda_build
+    from merlin_zkevm_prover_tpu_torch.ops import goldilocks as gl
+    from merlin_zkevm_prover_tpu_torch.ops import ntt, ntt_cuda
+    from merlin_zkevm_prover_tpu_torch.ops import poseidon_cuda as pc
+    from merlin_zkevm_prover_tpu_torch.stark import (
+        MerkleTreeGL, StarkProof, StarkProver, VerifyError, compile_air, verify)
+    from merlin_zkevm_prover_tpu_torch.utils.timer import TimerLog
+
+    t_start = time.time()
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    dev = torch.device("cuda")
+    P, SHIFT = gl.P, gl.SHIFT
+    rng = np.random.default_rng(2026)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2026)
+
+    def rnd(*shape) -> torch.Tensor:
+        """Seeded canonical field elements on the card."""
+        return torch.randint(0, 1 << 62, shape, generator=gen, device=dev,
+                             dtype=torch.int64)
+
+    def edge(t: torch.Tensor) -> torch.Tensor:
+        """Plant the edge operands at the front of a tensor."""
+        vals = [0, 1, (1 << 32) - 1, 1 << 32, P - (1 << 32), P - 1]
+        flat = t.reshape(-1)
+        k = min(len(vals), flat.numel())
+        flat[:k] = gl.from_u64(np.array(vals[:k], dtype=np.uint64), dev)
+        return t
+
+    # ------------------------------------------------------------------ device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    if smi.returncode != 0 or not card:
+        raise RuntimeError("nvidia-smi failed: " + smi.stdout)
+    print(card, flush=True)
+    cuda_build.lib()
+    pc._lib()
+    emit({"phase": "device", "card": card,
+          "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "kernel_build_s": cuda_build.BUILD_SECONDS,
+          "kernel_sources": [s.name for s in cuda_build._sources()]})
+
+    # ----------------------------------------------------------------- kernels
+    checks = []
+    worst = {"linear_hash": 0, "node_hash": 0, "ntt_block": 0, "ntt_short": 0}
+
+    def hold(kernel: str, what: str, got, want, **extra) -> None:
+        err = max_abs_err(got, want)
+        worst[kernel] = max(worst[kernel], err)
+        checks.append({"kernel": kernel, "case": what, "max_abs_err": err, **extra})
+        if err != 0:
+            raise AssertionError(f"{kernel} {what}: kernel != plain version "
+                                 f"(max abs err {err})")
+
+    H = 1 << 18
+    for w in (5, 8, 9, 21, 64):
+        x = edge(rnd(H, w))
+        hold("linear_hash", f"({H}, {w})", pc.linear_hash(x),
+             pc.linear_hash_plain(x))
+    x665 = edge(rnd(H, 665))
+    lh665 = pc.linear_hash(x665)
+    hold("linear_hash", f"({H}, 665), plain on the first 4096 rows",
+         lh665[:4096], pc.linear_hash_plain(x665[:4096]))
+    ms_lh665 = time_ms(lambda: pc.linear_hash(x665), 5)
+    del lh665
+    for n in (1, 3, 1 << 17):
+        l, r = edge(rnd(n, 4)), rnd(n, 4)
+        hold("node_hash", f"n = {n}", pc.node_hash(l, r), pc.node_hash_plain(l, r))
+    src = rnd(1 << 10, 9)
+    hold("node_hash", "merkelize (1024, 9): every level in place",
+         pc.merkelize(src), pc.merkelize(src.cpu()).to(dev))
+
+    def tw(log_l, inverse):
+        return ntt_cuda._dev(dev, ntt_cuda._stage_tables_np, log_l, inverse)
+
+    for log_l in (1, 3, 4, 8, 9):   # 2 and 8: the lengths below 16
+        l, b = 1 << log_l, 1000      # b: not a multiple of the tile width
+        x = edge(rnd(l, b))
+        x[:, 1] = 0
+        x[1 % l, 1] = 1              # one-hot column
+        u, v = rnd(l), rnd(b)
+        for name, kw in (
+                ("dif, inverse", dict(dif=True, inverse=True)),
+                ("dif, zero_top", dict(dif=True, zero_top=True)),
+                ("dit, sep_scale", dict(dif=False, u=u, v=v, inverse=True)),
+                ("dit, const_scale", dict(dif=False, const_scale=pow(l, P - 2, P),
+                                          inverse=True)),
+                ("dit, canon", dict(dif=False))):
+            kw = dict(kw)
+            t = tw(log_l, kw.pop("inverse", False))
+            xin = x[: l // 2] if kw.get("zero_top") else x
+            hold("ntt_block", f"L = {l}, {name}",
+                 ntt_cuda.ntt_block(xin, t, log_l, **kw),
+                 ntt_cuda.ntt_block_plain(xin, t, log_l, **kw))
+    for log_l, b in ((2, (1 << 16) * 3), (5, 1000)):
+        x = edge(rnd(1 << log_l, b))
+        hold("ntt_short", f"L = {1 << log_l}, B = {b}",
+             ntt_cuda.ntt_short(x, tw(log_l, True), log_l),
+             ntt_cuda.ntt_short_plain(x, tw(log_l, True), log_l))
+
+    def lagrange0(n, xx):
+        return (pow(xx, n, P) - 1) * pow(n * (xx - 1) % P, P - 2, P) % P
+
+    for nb in (6, 13, 15, 17):
+        n = 1 << nb
+        x = rnd(n, 8)
+        x[:, 0] = 0
+        x[0, 0] = 1                  # one-hot: INTT is 1/N everywhere
+        x[:, 1] = 0
+        x[0, 1] = 7                  # impulse: NTT is 7 everywhere
+        kernel = "ntt_block" if ntt_cuda.pipeline_ok(nb) else "ntt_short"
+        f, i_, e = ntt.ntt(x), ntt.intt(x), ntt.extend_pol(x, nb, nb + 1)
+        hold(kernel, f"ntt n_bits = {nb}", f, ntt.ntt_plain(x))
+        hold(kernel, f"intt n_bits = {nb}", i_, ntt.intt_plain(x))
+        hold(kernel, f"extend_pol n_bits = {nb}", e,
+             ntt.extend_pol_plain(x, nb, nb + 1))
+        if not bool((i_[:, 0] == gl.const(pow(n, P - 2, P), device=dev)).all()):
+            raise AssertionError(f"one-hot INTT probe failed at n_bits {nb}")
+        if not bool((f[:, 1] == 7).all()):
+            raise AssertionError(f"impulse NTT probe failed at n_bits {nb}")
+        col = gl.to_u64(e[:, 0])
+        for j in (0, 1, 3, 191, 192, 193, 2 * n - 1):
+            j %= 2 * n
+            if int(col[j]) != lagrange0(n, SHIFT * pow(gl.w(nb + 1), j, P) % P):
+                raise AssertionError(f"Lagrange probe failed, n_bits {nb} row {j}")
+    # above the pipeline's sizes: the four-step recursion over ntt_short
+    # (2^19 = 1024 x 512, the 1024 again 2 x 512), one column
+    x = rnd(1 << 19, 1)
+    hold("ntt_short", "ntt n_bits = 19", ntt.ntt(x), ntt.ntt_plain(x))
+    hold("ntt_short", "intt n_bits = 19", ntt.intt(x), ntt.intt_plain(x))
+    x = rnd(1 << 18, 1)
+    hold("ntt_short", "extend_pol n_bits = 18 -> 19", ntt.extend_pol(x, 18, 19),
+         ntt.extend_pol_plain(x, 18, 19))
+    emit({"phase": "kernels_check", "mismatches": 0, "cases": checks,
+          "linear_hash_2^18x665_ms": ms_lh665,
+          "linear_hash_2^18x665_bound_ms": bound_ms(
+              H * (665 + 4) * 8, H * -(-665 // 8) * PERM_MUL64,
+              H * -(-665 // 8) * PERM_IMAD32)[0]})
+    del x665, x, f, i_, e
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ golden
+    golden_out = []
+    for nb in (5, 13):
+        with open(os.path.join(root_dir, "tests", "data",
+                               f"torch_smoke_proof_nbits{nb}.json")) as fh:
+            golden = json.load(fh)
+        air, trace = build_smoke_air(n_bits=nb, seed=golden["seed"])
+        info = compile_air(air, **golden["compile_air"])
+        prover = StarkProver(info, np.stack(air.const_values, axis=1))
+        proof = prover.prove(trace)
+        ref = StarkProof.from_json(json.dumps(golden["proof"]))
+        if prover.const_tree.root() != golden["const_root"]:
+            raise AssertionError(f"golden n_bits {nb}: const root differs")
+        for field in ("roots", "evals", "fri_roots", "final_pol",
+                      "queries_step0", "queries_fri", "publics"):
+            if getattr(proof, field) != getattr(ref, field):
+                raise AssertionError(f"golden n_bits {nb}: field {field} differs")
+        verify(info, prover.const_tree.root(), proof)
+        golden_out.append({"n_bits": nb, "equal": True, "verified": True})
+    emit({"phase": "golden", "proofs": golden_out})
+
+    # ------------------------------------------------------------------ commit
+    NB, W = 17, 665
+    before = dict(pc.LAUNCHES), dict(ntt_cuda.LAUNCHES)
+    mat = rnd(1 << NB, W)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    lde = ntt.extend_pol_blocked(mat, NB, NB + 1)
+    torch.cuda.synchronize()
+    t_lde = time.time() - t0
+    t0 = time.time()
+    tree = MerkleTreeGL(lde)
+    tree.merkelize()
+    torch.cuda.synchronize()
+    t_merkle = time.time() - t0
+    blk = slice(128, 192)
+    if max_abs_err(lde[:, blk],
+                   ntt.extend_pol_plain(mat[:, blk].contiguous(), NB, NB + 1)):
+        raise AssertionError("commit: LDE block differs from the plain version")
+    root = tree.root()
+    idxs = [int(i) for i in rng.integers(0, 1 << (NB + 1), 16)]
+    for (row, sib), idx in zip(tree.get_group_proofs(idxs), idxs):
+        if not MerkleTreeGL.verify_proof(root, idx, row, sib):
+            raise AssertionError(f"commit: opening {idx} does not verify")
+    felts = (1 << NB) * W
+    emit({"phase": "commit", "shape": [1 << NB, W], "lde_ms": t_lde * 1e3,
+          "merkle_ms": t_merkle * 1e3,
+          "felts_per_s": felts / (t_lde + t_merkle),
+          "openings_verified": len(idxs),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "launches": {k: pc.LAUNCHES[k] - before[0][k] for k in pc.LAUNCHES}
+          | {k: ntt_cuda.LAUNCHES[k] - before[1][k] for k in ntt_cuda.LAUNCHES}})
+    del mat, lde, tree
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------- prove
+    air, trace = build_smoke_air(n_bits=17, seed=42)
+    info = compile_air(air, n_queries=32)
+    const_vals = np.stack(air.const_values, axis=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counters in (pc.LAUNCHES, ntt_cuda.LAUNCHES):
+        for k in counters:
+            counters[k] = 0
+    t0 = time.time()
+    prover = StarkProver(info, const_vals)
+    torch.cuda.synchronize()
+    t_setup = time.time() - t0
+    tlog = TimerLog("chip_smoke", quiet=True)
+    t0 = time.time()
+    proof = prover.prove(trace, timer=tlog)
+    torch.cuda.synchronize()
+    t_prove = time.time() - t0
+    launches = {**pc.LAUNCHES, **ntt_cuda.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"main path never launched kernel {k}")
+    t0 = time.time()
+    verify(info, prover.const_tree.root(), proof)
+    t_verify = time.time() - t0
+    bad = StarkProof.from_json(proof.to_json())
+    bad.publics[0] = (bad.publics[0] + 1) % P
+    try:
+        verify(info, prover.const_tree.root(), bad)
+    except VerifyError:
+        pass
+    else:
+        raise AssertionError("a proof with a changed public was accepted")
+    emit({"phase": "prove", "circuit": "smoke", "n_bits": info.n_bits,
+          "n_bits_ext": info.n_bits_ext, "fri_step_bits": info.fri_step_bits,
+          "n_queries": info.n_queries, "section_widths": info.section_widths,
+          "setup_s": t_setup, "prove_s": t_prove, "verify_s": t_verify,
+          "spans_s": tlog.as_dict(), "peak_memory_bytes": peak,
+          "launches": launches, "verified": True, "tampered_rejected": True})
+
+    # ------------------------------------- times at the main path's shapes
+    n_ext = info.n_ext
+    wmax = max(info.section_widths.values())
+    n2 = 1 << ntt_cuda.MAX_KERNEL_BITS
+    entries = []
+
+    x = rnd(n_ext, wmax)
+    hold("linear_hash", f"main path ({n_ext}, {wmax})", pc.linear_hash(x),
+         pc.linear_hash_plain(x))
+    nchunks = -(-wmax // 8)
+    b_ms, b_by = bound_ms(n_ext * (wmax + 4) * 8, n_ext * nchunks * PERM_MUL64,
+                          n_ext * nchunks * PERM_IMAD32)
+    b_sbox = bound_ms(n_ext * (wmax + 4) * 8, n_ext * nchunks * PERM_SBOX_MUL64)[0]
+    entries.append({
+        "name": "linear_hash", "route": "cuda",
+        "source": "merlin_zkevm_prover_tpu_torch/csrc/poseidon_gl.cu",
+        "replaces": "merlin_zkevm_prover_tpu/ops/poseidon_tpu.py:326",
+        "shape": [n_ext, wmax], "launches": launches["linear_hash"],
+        "max_abs_err": worst["linear_hash"],
+        "ms": time_ms(lambda: pc.linear_hash(x), 7),
+        "plain_ms": time_ms(lambda: pc.linear_hash_plain(x), 2),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "bound_ms_sboxes_only": b_sbox})
+
+    npairs = n_ext // 2
+    l, r = rnd(npairs, 4), rnd(npairs, 4)
+    hold("node_hash", f"main path ({npairs}, 4)", pc.node_hash(l, r),
+         pc.node_hash_plain(l, r))
+    b_ms, b_by = bound_ms(npairs * 12 * 8, npairs * PERM_MUL64,
+                          npairs * PERM_IMAD32)
+    b_sbox = bound_ms(npairs * 12 * 8, npairs * PERM_SBOX_MUL64)[0]
+    entries.append({
+        "name": "node_hash", "route": "cuda",
+        "source": "merlin_zkevm_prover_tpu_torch/csrc/poseidon_gl.cu",
+        "replaces": "merlin_zkevm_prover_tpu/ops/poseidon_tpu.py:350",
+        "shape": [npairs, 4], "launches": launches["node_hash"],
+        "max_abs_err": worst["node_hash"],
+        "ms": time_ms(lambda: pc.node_hash(l, r), 7),
+        "plain_ms": time_ms(lambda: pc.node_hash_plain(l, r), 2),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "bound_ms_sboxes_only": b_sbox})
+
+    # kernel B of the forward transform of the widest section's LDE
+    log_l, b = ntt_cuda.MAX_KERNEL_BITS, (n_ext // n2) * wmax
+    x = rnd(n2, b)
+    t = tw(log_l, False)
+    hold("ntt_block", f"main path ({n2}, {b})",
+         ntt_cuda.ntt_block(x, t, log_l, False),
+         ntt_cuda.ntt_block_plain(x, t, log_l, False))
+    b_ms, b_by = bound_ms(2 * n2 * b * 8 + (n2 - 1) * 8,
+                          (n2 // 2) * (log_l - 1) * b)
+    entries.append({
+        "name": "ntt_block", "route": "cuda",
+        "source": "merlin_zkevm_prover_tpu_torch/csrc/ntt_gl.cu",
+        "replaces": "merlin_zkevm_prover_tpu/ops/ntt_tpu.py:736",
+        "shape": [n2, b], "launches": launches["ntt_block"],
+        "max_abs_err": worst["ntt_block"],
+        "ms": time_ms(lambda: ntt_cuda.ntt_block(x, t, log_l, False), 7),
+        "plain_ms": time_ms(lambda: ntt_cuda.ntt_block_plain(x, t, log_l, False), 2),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+    # FRI's first fold: INTT of length 4 over (4, pol2N * 3)
+    fold = info.fri_step_bits[0] - info.fri_step_bits[1]
+    b = (n_ext >> fold) * 3
+    x = rnd(1 << fold, b)
+    t = tw(fold, True)
+    hold("ntt_short", f"main path ({1 << fold}, {b})",
+         ntt_cuda.ntt_short(x, t, fold), ntt_cuda.ntt_short_plain(x, t, fold))
+    b_ms, b_by = bound_ms(2 * (1 << fold) * b * 8,
+                          (1 << fold) // 2 * (fold - 1) * b)
+    entries.append({
+        "name": "ntt_short", "route": "cuda",
+        "source": "merlin_zkevm_prover_tpu_torch/csrc/ntt_gl.cu",
+        "replaces": "merlin_zkevm_prover_tpu/ops/ntt_tpu.py:192",
+        "shape": [1 << fold, b], "launches": launches["ntt_short"],
+        "max_abs_err": worst["ntt_short"],
+        "ms": time_ms(lambda: ntt_cuda.ntt_short(x, t, fold), 7),
+        "plain_ms": time_ms(lambda: ntt_cuda.ntt_short_plain(x, t, fold), 2),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+    emit({"phase": "main_path_shapes_check", "mismatches": 0,
+          "cases": [c for c in checks if c["case"].startswith("main path")]})
+    emit({"phase": "done", "seconds": time.time() - t_start, "card": card})
+    emit({"kernels": entries})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

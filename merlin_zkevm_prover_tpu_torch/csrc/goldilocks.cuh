@@ -1,0 +1,69 @@
+// Goldilocks field (p = 2^64 - 2^32 + 1) device arithmetic on uint64_t.
+//
+// Range discipline: every function states the range of its inputs and of its
+// result.  "canonical" means [0, p).  All arithmetic results are canonical:
+// nothing lazy is carried between functions, so the add/sub carry chains
+// (exact only below p) never see a residue in [p, 2^64).
+#pragma once
+#include <stdint.h>
+
+#define GL_P 0xFFFFFFFF00000001ULL
+#define GL_EPS 0xFFFFFFFFULL  // 2^64 mod p
+
+// in: any word in [0, 2^64).  out: canonical.  2^64 - p < p, so one
+// conditional subtract is enough.
+__device__ __forceinline__ uint64_t gl_canon(uint64_t x) {
+    return x >= GL_P ? x - GL_P : x;
+}
+
+// in: a, b canonical.  out: canonical.
+// a + b < 2p; on carry the wrapped sum is < 2^64 - 2^33 + 2, so adding
+// EPS (= 2^64 mod p) cannot wrap again.
+__device__ __forceinline__ uint64_t gl_add(uint64_t a, uint64_t b) {
+    uint64_t s = a + b;
+    if (s < a) s += GL_EPS;
+    return gl_canon(s);
+}
+
+// in: a, b canonical.  out: canonical.
+// On borrow the true value is wrapped - 2^64 + p = wrapped - EPS; the
+// wrapped word is >= 2^64 - p + 1 > EPS there, so no second borrow, and the
+// result a - b + p lies in (0, p).
+__device__ __forceinline__ uint64_t gl_sub(uint64_t a, uint64_t b) {
+    uint64_t d = a - b;
+    if (a < b) d -= GL_EPS;
+    return d;
+}
+
+// in: (lo, hi) any 128-bit value lo + 2^64 * hi.  out: canonical.
+// 2^64 = EPS and 2^96 = -1 (mod p):
+//   x = lo - hi_hi + hi_lo * EPS,   hi = hi_hi * 2^32 + hi_lo.
+__device__ __forceinline__ uint64_t gl_reduce128(uint64_t lo, uint64_t hi) {
+    uint64_t hi_hi = hi >> 32;
+    uint64_t hi_lo = hi & 0xFFFFFFFFULL;
+    uint64_t t0 = lo - hi_hi;
+    // borrow: add p = 2^64 - EPS, i.e. subtract EPS from the wrapped word,
+    // which is >= 2^64 - 2^32 + 1 > EPS: no second borrow
+    if (lo < hi_hi) t0 -= GL_EPS;
+    uint64_t t1 = (hi_lo << 32) - hi_lo;  // hi_lo * EPS <= (2^32-1)^2
+    uint64_t s = t0 + t1;
+    // carry: the wrapped sum is < t1 <= 2^64 - 2^33 + 1, so + EPS fits
+    if (s < t0) s += GL_EPS;
+    return gl_canon(s);
+}
+
+// in: a, b any words in [0, 2^64).  out: canonical.
+__device__ __forceinline__ uint64_t gl_mul(uint64_t a, uint64_t b) {
+    return gl_reduce128(a * b, __umul64hi(a, b));
+}
+
+// in: any word.  out: canonical.
+__device__ __forceinline__ uint64_t gl_sqr(uint64_t a) { return gl_mul(a, a); }
+
+// in: any word.  out: canonical a^7.
+__device__ __forceinline__ uint64_t gl_pow7(uint64_t a) {
+    uint64_t a2 = gl_sqr(a);
+    uint64_t a3 = gl_mul(a2, a);
+    uint64_t a4 = gl_sqr(a2);
+    return gl_mul(a3, a4);
+}

@@ -1,0 +1,129 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` at first use, one
+``nvcc -c`` per source started together, then linked into one shared
+library with a plain C interface under ``build/`` and loaded with
+``ctypes``.  The library's name carries a hash of the sources, so an edit
+rebuilds and an unchanged tree reuses what it built.  A build or load
+failure raises with the compiler's output: nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+BUILD_SECONDS: Optional[float] = None  # None until built or found in build/
+BUILD_LOG = ""                         # nvcc / ptxas output of the last build
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(looked on PATH and under CUDA_HOME / /usr/local/cuda)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile every source in parallel and link; returns the library path."""
+    global BUILD_SECONDS, BUILD_LOG
+    out = BUILD_DIR / f"libmerlin_kernels_{_digest()}.so"
+    if out.exists():
+        if BUILD_SECONDS is None:
+            BUILD_SECONDS = 0.0
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    procs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}_{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        procs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, objs = [], []
+    failed = None
+    for cmd, obj, p in procs:
+        text, _ = p.communicate()
+        logs.append("$ " + " ".join(cmd) + "\n" + text)
+        objs.append(obj)
+        if p.returncode != 0 and failed is None:
+            failed = cmd
+    BUILD_LOG = "\n".join(logs)
+    if failed is not None:
+        raise RuntimeError("kernel build failed:\n" + BUILD_LOG)
+    tmp = BUILD_DIR / f"{out.stem}_{os.getpid()}.tmp.so"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    r = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+    BUILD_LOG += "\n$ " + " ".join(cmd) + "\n" + r.stdout
+    if r.returncode != 0:
+        raise RuntimeError("kernel link failed:\n" + BUILD_LOG)
+    os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    BUILD_SECONDS = time.time() - t0
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            cdll = ctypes.CDLL(str(build()))
+            vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+            cdll.merlin_poseidon_set_constants.argtypes = [vp, vp, ctypes.c_uint32]
+            cdll.merlin_poseidon_set_constants.restype = ci
+            cdll.merlin_linear_hash.argtypes = [vp, vp, ll, ci, vp]
+            cdll.merlin_linear_hash.restype = ci
+            cdll.merlin_node_hash.argtypes = [vp, vp, ll, vp, ll, vp]
+            cdll.merlin_node_hash.restype = ci
+            cdll.merlin_ntt_block.argtypes = [vp, vp, vp, vp, vp,
+                                              ctypes.c_ulonglong, ci, ci, ll,
+                                              ci, ci, vp]
+            cdll.merlin_ntt_block.restype = ci
+            _lib = cdll
+        return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise on a non-zero cudaGetLastError() returned by a C entry point."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def stream_ptr() -> int:
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
