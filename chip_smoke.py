@@ -4,31 +4,41 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``merlin_zkevm_prover_tpu_torch/csrc`` and runs
-five phases, each of which raises on failure (nothing falls back to the CPU,
+six phases, each of which raises on failure (nothing falls back to the CPU,
 and the exit code is non-zero unless every phase passed):
 
   device   the card's name and power limit, versions, the kernel build
   kernels  every kernel against its plain PyTorch version on the card, exact
-           equality, at the main path's shapes and at edge shapes, with times
-  golden   smoke proofs at n_bits 5 and 13 proven on the card equal, field by
-           field, the proofs the JAX prover wrote (tests/data/)
+           equality, at the main paths' shapes and at edge shapes: permute at
+           B = 1, 127, 128 and 270,600 with edge words in every lane, the
+           block NTT at L = 2, 4, 8, 16, 256 and 512 with each flag set
+  permute  K1's path: the batched permutation entry point
+           (``ops.poseidon_gl.permute``) on a (12, 270600) state, the
+           PoseidonG state machine's capacity at 2^23 rows; columns checked
+           against the python-int permutation
+  golden   smoke proofs at n_bits 5, 10, 11 and 13 proven on the card equal,
+           field by field, the proofs the JAX prover wrote (tests/data/); the
+           n_bits 11 proof is K6's path (its LDE runs block lengths 4 and 8)
   commit   coset LDE + Poseidon Merkle tree of a seeded 2^17 x 665 matrix (the
            zkEVM's cm1 width), checked against the plain LDE and python-int
            openings
   prove    the main path: one STARK proof of the smoke circuit at n_bits 17
-           through the kernels, verified; launch counters are set to 0 just
-           before and read just after
+           through the kernels, verified
+
+Each path (permute, each golden proof, prove) is driven with every launch
+counter set to 0 just before it and read just after.
 
 Output: one JSON object per line.  The line before the last lists every
-kernel with its launches on the main path, its error against the plain
-version, its time, the plain version's time and the card's bound for the
-same work.  The last line is
+kernel (K1 to K6) with its launches on its path, its error against the
+plain version, its time, the plain version's time and the card's bound for
+the same work.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It imports no JAX.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import statistics
@@ -72,14 +82,47 @@ def bound_ms(n_bytes: float, mul64: float, imad32: float = 0.0):
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
-def time_ms(fn, runs: int) -> float:
-    """Median over `runs` single calls, CUDA events, after one warm-up."""
+# ~0.5 ms of GPU spin ahead of a timed call: the host enqueues the call's
+# launches (tens of microseconds of python and ctypes each) while the card is
+# still busy, so the events time the card's work and not the host's.
+PREFILL_CYCLES = 1_000_000
+
+
+def perm_bound_ms(n_perm: int, n_bytes: float):
+    """Bound of `n_perm` Poseidon permutations moving `n_bytes`."""
+    return bound_ms(n_bytes, n_perm * PERM_MUL64, n_perm * PERM_IMAD32)
+
+
+def call_bound_ms(kernel: str, a: dict):
+    """Bound of one launch of a kernel wrapper, from its arguments by name."""
+    if kernel == "linear_hash":
+        h, w = a["rows"].shape
+        return perm_bound_ms(h * -(-w // 8), h * (w + 4) * 8)
+    x, log_l = a["x"], a["log_l"]
+    l, b = 1 << log_l, x.shape[1]
+    n_bytes = (x.shape[0] + l) * b * 8 + (l - 1) * 8
+    mul64 = (l // 2) * (log_l - 1) * b
+    if kernel != "ntt_short":           # the block kernel's epilogues
+        for scale in ("u", "v", "const_scale"):
+            if a[scale] is not None:
+                mul64 += l * b
+        n_bytes += (l * 8 if a["u"] is not None else 0) + (
+            b * 8 if a["v"] is not None else 0)
+    return bound_ms(n_bytes, mul64)
+
+
+def time_ms(fn, runs: int, prefill: bool = True) -> float:
+    """Median over `runs` single calls, CUDA events, after one warm-up.
+    With `prefill` off the card is idle when the call starts, so the time
+    includes the host's cost of issuing it."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if prefill:
+            torch.cuda._sleep(PREFILL_CYCLES)
         a.record()
         fn()
         b.record()
@@ -110,6 +153,8 @@ def main() -> int:
     from merlin_zkevm_prover_tpu_torch.ops import goldilocks as gl
     from merlin_zkevm_prover_tpu_torch.ops import ntt, ntt_cuda
     from merlin_zkevm_prover_tpu_torch.ops import poseidon_cuda as pc
+    from merlin_zkevm_prover_tpu_torch.ops import poseidon_gl as pg
+    from merlin_zkevm_prover_tpu_torch.ops.poseidon_constants import CAPACITY
     from merlin_zkevm_prover_tpu_torch.stark import (
         MerkleTreeGL, StarkProof, StarkProver, VerifyError, compile_air, verify)
     from merlin_zkevm_prover_tpu_torch.utils.timer import TimerLog
@@ -135,6 +180,78 @@ def main() -> int:
         flat[:k] = gl.from_u64(np.array(vals[:k], dtype=np.uint64), dev)
         return t
 
+    # the edge operands and two words in [p, 2^64), which are read modulo p
+    lane_vals = np.array([0, 1, (1 << 32) - 1, 1 << 32, P - (1 << 32), P - 1,
+                          P, (1 << 64) - 1], dtype=np.uint64)
+
+    def edge_lanes(st: torch.Tensor) -> torch.Tensor:
+        """Plant the edge words at the front of every lane of a (12, B)
+        state, rotated from lane to lane."""
+        k = min(len(lane_vals), st.shape[1])
+        for i in range(st.shape[0]):
+            st[i, :k] = gl.from_u64(np.roll(lane_vals, i)[:k], dev)
+        return st
+
+    def zero_counters() -> None:
+        for counters in (pc.LAUNCHES, ntt_cuda.LAUNCHES):
+            for k in counters:
+                counters[k] = 0
+
+    def read_counters() -> dict:
+        return {**pc.LAUNCHES, **ntt_cuda.LAUNCHES}
+
+    def log_launches():
+        """Log every launching call of the wrappers a proof runs, with its
+        arguments by name, so that the proof's launches can be timed again
+        one by one at the same shapes.  The data operand is logged by its
+        shape only, so that the log keeps none of the proof's matrices
+        alive (the kernels' time does not depend on the values); node_hash
+        by its pair count.  Returns the log and a function that puts the
+        wrappers back."""
+        log = {k: [] for k in ("linear_hash", "node_hash", "ntt_short",
+                               "ntt_block", "ntt_block_short")}
+        saved = []
+
+        def wrap(mod, name, kernel_of):
+            orig = getattr(mod, name)
+            sig = inspect.signature(orig)
+            saved.append((mod, name, orig))
+
+            def logged(*args, **kw):
+                call = sig.bind(*args, **kw)
+                call.apply_defaults()
+                kernel = kernel_of(call.arguments)
+                if kernel is not None:
+                    log[kernel].append((orig, {
+                        k: tuple(v.shape) if k in ("rows", "x") else v
+                        for k, v in call.arguments.items()}))
+                return orig(*args, **kw)
+            setattr(mod, name, logged)
+
+        wrap(pc, "linear_hash", lambda a: "linear_hash" if min(
+            a["rows"].shape[0], a["rows"].shape[1] - CAPACITY) > 0 else None)
+        wrap(ntt_cuda, "ntt_short",
+             lambda a: "ntt_short" if a["x"].shape[1] else None)
+        wrap(ntt_cuda, "ntt_block", lambda a: None if not a["x"].shape[1] else (
+            "ntt_block_short" if a["log_l"] <= ntt_cuda.SHORT_BLOCK_BITS
+            else "ntt_block"))
+        wrap(pc, "_launch_node_hash", lambda a: "node_hash")
+
+        def restore():
+            for mod, name, orig in saved:
+                setattr(mod, name, orig)
+        return log, restore
+
+    def per_proof(calls, kernel):
+        """Device time and bound of a proof's logged launches of one
+        kernel, each timed again at its shape on seeded data, summed."""
+        ms = bound = 0.0
+        for orig, a in calls:
+            a = {k: rnd(*v) if k in ("rows", "x") else v for k, v in a.items()}
+            ms += time_ms(lambda: orig(**a), 3)
+            bound += call_bound_ms(kernel, a)[0]
+        return ms, bound
+
     # ------------------------------------------------------------------ device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -154,7 +271,8 @@ def main() -> int:
 
     # ----------------------------------------------------------------- kernels
     checks = []
-    worst = {"linear_hash": 0, "node_hash": 0, "ntt_block": 0, "ntt_short": 0}
+    worst = {"permute": 0, "linear_hash": 0, "node_hash": 0, "ntt_short": 0,
+             "ntt_block": 0, "ntt_block_short": 0}
 
     def hold(kernel: str, what: str, got, want, **extra) -> None:
         err = max_abs_err(got, want)
@@ -163,6 +281,14 @@ def main() -> int:
         if err != 0:
             raise AssertionError(f"{kernel} {what}: kernel != plain version "
                                  f"(max abs err {err})")
+
+    # K1: 1 and 127 leave a block partly idle, 128 fills one exactly
+    B_PERM = (1 << 23) // 31        # PoseidonG capacity at 2^23 rows: 270,600
+    for b in (1, 127, 128, B_PERM):
+        st = edge_lanes(rnd(12, b))
+        hold("permute", f"(12, {b})", pc.permute(st), pc.permute_plain(st))
+    hold("permute", "(12,)", pc.permute(st[:, 5].clone()),
+         pc.permute_plain(st[:, 5].clone()))
 
     H = 1 << 18
     for w in (5, 8, 9, 21, 64):
@@ -185,7 +311,7 @@ def main() -> int:
     def tw(log_l, inverse):
         return ntt_cuda._dev(dev, ntt_cuda._stage_tables_np, log_l, inverse)
 
-    for log_l in (1, 3, 4, 8, 9):   # 2 and 8: the lengths below 16
+    for log_l in (1, 2, 3, 4, 8, 9):  # 2, 4 and 8: the lengths below 16
         l, b = 1 << log_l, 1000      # b: not a multiple of the tile width
         x = edge(rnd(l, b))
         x[:, 1] = 0
@@ -201,7 +327,8 @@ def main() -> int:
             kw = dict(kw)
             t = tw(log_l, kw.pop("inverse", False))
             xin = x[: l // 2] if kw.get("zero_top") else x
-            hold("ntt_block", f"L = {l}, {name}",
+            hold("ntt_block_short" if log_l <= ntt_cuda.SHORT_BLOCK_BITS
+                 else "ntt_block", f"L = {l}, {name}",
                  ntt_cuda.ntt_block(xin, t, log_l, **kw),
                  ntt_cuda.ntt_block_plain(xin, t, log_l, **kw))
     for log_l, b in ((2, (1 << 16) * 3), (5, 1000)):
@@ -213,14 +340,15 @@ def main() -> int:
     def lagrange0(n, xx):
         return (pow(xx, n, P) - 1) * pow(n * (xx - 1) % P, P - 2, P) % P
 
-    for nb in (6, 13, 15, 17):
+    for nb in (6, 11, 13, 15, 17):
         n = 1 << nb
         x = rnd(n, 8)
         x[:, 0] = 0
         x[0, 0] = 1                  # one-hot: INTT is 1/N everywhere
         x[:, 1] = 0
         x[0, 1] = 7                  # impulse: NTT is 7 everywhere
-        kernel = "ntt_block" if ntt_cuda.pipeline_ok(nb) else "ntt_short"
+        kernel = ("ntt_short" if not ntt_cuda.pipeline_ok(nb)
+                  else "ntt_block_short" if nb < 13 else "ntt_block")
         f, i_, e = ntt.ntt(x), ntt.intt(x), ntt.extend_pol(x, nb, nb + 1)
         hold(kernel, f"ntt n_bits = {nb}", f, ntt.ntt_plain(x))
         hold(kernel, f"intt n_bits = {nb}", i_, ntt.intt_plain(x))
@@ -248,19 +376,53 @@ def main() -> int:
           "linear_hash_2^18x665_bound_ms": bound_ms(
               H * (665 + 4) * 8, H * -(-665 // 8) * PERM_MUL64,
               H * -(-665 // 8) * PERM_IMAD32)[0]})
-    del x665, x, f, i_, e
+    del x665, x, f, i_, e, st
     torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- permute
+    perm_state = edge_lanes(rnd(12, B_PERM))
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.time()
+    perm_out = pg.permute(perm_state)
+    torch.cuda.synchronize()
+    t_perm = time.time() - t0
+    perm_launches = read_counters()
+    if perm_launches["permute"] != 1:
+        raise AssertionError(f"permute path: {perm_launches}")
+    cols = sorted({0, 1, 7, 8, 127, 128, B_PERM - 1}
+                  | {int(i) for i in rng.integers(0, B_PERM, 9)})
+    got_cols = gl.to_u64(perm_out[:, cols])
+    ins = gl.to_u64(perm_state[:, cols])
+    for j in range(len(cols)):
+        if [int(v) for v in got_cols[:, j]] != pg.permute_host(
+                [int(v) for v in ins[:, j]]):
+            raise AssertionError(f"permute path: column {cols[j]} differs "
+                                 "from the python-int permutation")
+    emit({"phase": "permute", "shape": [12, B_PERM], "host_clock_ms": t_perm * 1e3,
+          "columns_checked": len(cols), "launches": perm_launches})
+    del perm_out
 
     # ------------------------------------------------------------------ golden
     golden_out = []
-    for nb in (5, 13):
+    golden_launches = {}
+    for nb in (5, 10, 11, 13):
         with open(os.path.join(root_dir, "tests", "data",
                                f"torch_smoke_proof_nbits{nb}.json")) as fh:
             golden = json.load(fh)
         air, trace = build_smoke_air(n_bits=nb, seed=golden["seed"])
         info = compile_air(air, **golden["compile_air"])
+        torch.cuda.synchronize()
+        log, restore = log_launches()
+        zero_counters()
         prover = StarkProver(info, np.stack(air.const_values, axis=1))
         proof = prover.prove(trace)
+        torch.cuda.synchronize()
+        golden_launches[nb] = read_counters()
+        restore()
+        if nb in (10, 11) and golden_launches[nb]["ntt_block_short"] <= 0:
+            raise AssertionError(f"golden n_bits {nb}: no block NTT below "
+                                 "length 16 was launched")
         ref = StarkProof.from_json(json.dumps(golden["proof"]))
         if prover.const_tree.root() != golden["const_root"]:
             raise AssertionError(f"golden n_bits {nb}: const root differs")
@@ -269,7 +431,14 @@ def main() -> int:
             if getattr(proof, field) != getattr(ref, field):
                 raise AssertionError(f"golden n_bits {nb}: field {field} differs")
         verify(info, prover.const_tree.root(), proof)
-        golden_out.append({"n_bits": nb, "equal": True, "verified": True})
+        golden_out.append({"n_bits": nb, "equal": True, "verified": True,
+                           "section_widths": info.section_widths,
+                           "fri_step_bits": info.fri_step_bits,
+                           "launches": golden_launches[nb]})
+        if nb == 11:
+            info11 = info
+            k6_proof = per_proof(log["ntt_block_short"], "ntt_block_short")
+        del log
     emit({"phase": "golden", "proofs": golden_out})
 
     # ------------------------------------------------------------------ commit
@@ -313,9 +482,8 @@ def main() -> int:
     const_vals = np.stack(air.const_values, axis=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for counters in (pc.LAUNCHES, ntt_cuda.LAUNCHES):
-        for k in counters:
-            counters[k] = 0
+    log, restore = log_launches()
+    zero_counters()
     t0 = time.time()
     prover = StarkProver(info, const_vals)
     torch.cuda.synchronize()
@@ -325,11 +493,19 @@ def main() -> int:
     proof = prover.prove(trace, timer=tlog)
     torch.cuda.synchronize()
     t_prove = time.time() - t0
-    launches = {**pc.LAUNCHES, **ntt_cuda.LAUNCHES}
+    launches = read_counters()
+    restore()
     peak = torch.cuda.max_memory_allocated()
-    for k, v in launches.items():
-        if v <= 0:
+    for k in ("linear_hash", "node_hash", "ntt_short", "ntt_block"):
+        if launches[k] <= 0:
             raise AssertionError(f"main path never launched kernel {k}")
+        if len(log[k]) != launches[k]:
+            raise AssertionError(f"{k}: {len(log[k])} of {launches[k]} "
+                                 "launches logged")
+    node_sizes = [a["n"] for _, a in log["node_hash"]]
+    proof_times = {k: per_proof(log[k], k)
+                   for k in ("linear_hash", "ntt_short", "ntt_block")}
+    del log
     t0 = time.time()
     verify(info, prover.const_tree.root(), proof)
     t_verify = time.time() - t0
@@ -348,88 +524,144 @@ def main() -> int:
           "spans_s": tlog.as_dict(), "peak_memory_bytes": peak,
           "launches": launches, "verified": True, "tampered_rejected": True})
 
-    # ------------------------------------- times at the main path's shapes
+    # ---------------------------------------- times at the paths' shapes
+    # Each entry: one launch at the largest shape its path gives it, and, for
+    # the proofs' kernels, every launch of the proof timed again on its own
+    # inputs and summed (per_proof_ms), beside the sum of their bounds.
     n_ext = info.n_ext
     wmax = max(info.section_widths.values())
     n2 = 1 << ntt_cuda.MAX_KERNEL_BITS
     entries = []
 
+    def entry(name, replaces, shape, launches_, ms, plain_ms, bound, **extra):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "merlin_zkevm_prover_tpu_torch/csrc/" + (
+                "poseidon_gl.cu" if name in ("permute", "linear_hash",
+                                             "node_hash") else "ntt_gl.cu"),
+            "replaces": "merlin_zkevm_prover_tpu/ops/" + replaces,
+            "shape": shape, "launches": launches_,
+            "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            **extra})
+
+    def per_proof_keys(ms_bound):
+        return {"per_proof_ms": ms_bound[0], "per_proof_bound_ms": ms_bound[1]}
+
+    # K1 on its path's state
+    entry("permute", "poseidon_tpu.py:317", [12, B_PERM], perm_launches["permute"],
+          time_ms(lambda: pc.permute(perm_state), 7),
+          time_ms(lambda: pc.permute_plain(perm_state), 2),
+          perm_bound_ms(B_PERM, 2 * 12 * B_PERM * 8),
+          path="ops.poseidon_gl.permute",
+          bound_ms_sboxes_only=bound_ms(2 * 12 * B_PERM * 8,
+                                        B_PERM * PERM_SBOX_MUL64)[0])
+    del perm_state
+
     x = rnd(n_ext, wmax)
     hold("linear_hash", f"main path ({n_ext}, {wmax})", pc.linear_hash(x),
          pc.linear_hash_plain(x))
     nchunks = -(-wmax // 8)
-    b_ms, b_by = bound_ms(n_ext * (wmax + 4) * 8, n_ext * nchunks * PERM_MUL64,
-                          n_ext * nchunks * PERM_IMAD32)
-    b_sbox = bound_ms(n_ext * (wmax + 4) * 8, n_ext * nchunks * PERM_SBOX_MUL64)[0]
-    entries.append({
-        "name": "linear_hash", "route": "cuda",
-        "source": "merlin_zkevm_prover_tpu_torch/csrc/poseidon_gl.cu",
-        "replaces": "merlin_zkevm_prover_tpu/ops/poseidon_tpu.py:326",
-        "shape": [n_ext, wmax], "launches": launches["linear_hash"],
-        "max_abs_err": worst["linear_hash"],
-        "ms": time_ms(lambda: pc.linear_hash(x), 7),
-        "plain_ms": time_ms(lambda: pc.linear_hash_plain(x), 2),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "bound_ms_sboxes_only": b_sbox})
+    entry("linear_hash", "poseidon_tpu.py:326", [n_ext, wmax],
+          launches["linear_hash"], time_ms(lambda: pc.linear_hash(x), 7),
+          time_ms(lambda: pc.linear_hash_plain(x), 2),
+          call_bound_ms("linear_hash", {"rows": x}),
+          bound_ms_sboxes_only=bound_ms(n_ext * (wmax + 4) * 8,
+                                        n_ext * nchunks * PERM_SBOX_MUL64)[0],
+          **per_proof_keys(proof_times["linear_hash"]))
 
+    # K3: the largest tree level, and each level size of the proof, launched
+    # in place at stride 8 as the tree builds it, on a busy card (the
+    # kernel's time) and on an idle one (with the host's cost of the launch)
     npairs = n_ext // 2
     l, r = rnd(npairs, 4), rnd(npairs, 4)
     hold("node_hash", f"main path ({npairs}, 4)", pc.node_hash(l, r),
          pc.node_hash_plain(l, r))
-    b_ms, b_by = bound_ms(npairs * 12 * 8, npairs * PERM_MUL64,
-                          npairs * PERM_IMAD32)
-    b_sbox = bound_ms(npairs * 12 * 8, npairs * PERM_SBOX_MUL64)[0]
-    entries.append({
-        "name": "node_hash", "route": "cuda",
-        "source": "merlin_zkevm_prover_tpu_torch/csrc/poseidon_gl.cu",
-        "replaces": "merlin_zkevm_prover_tpu/ops/poseidon_tpu.py:350",
-        "shape": [npairs, 4], "launches": launches["node_hash"],
-        "max_abs_err": worst["node_hash"],
-        "ms": time_ms(lambda: pc.node_hash(l, r), 7),
-        "plain_ms": time_ms(lambda: pc.node_hash_plain(l, r), 2),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "bound_ms_sboxes_only": b_sbox})
+    lvl = rnd(2 * npairs, 4)
+    lvl_out = torch.empty((npairs, 4), dtype=torch.int64, device=dev)
+    per_level, per_level_idle = {}, {}
+    for n in sorted(set(node_sizes)):
+        def level():
+            pc._launch_node_hash(lvl.data_ptr(), lvl.data_ptr() + 32, 8,
+                                 lvl_out.data_ptr(), n, dev)
+        per_level[n] = time_ms(level, 7)
+        per_level_idle[n] = time_ms(level, 7, prefill=False)
+    entry("node_hash", "poseidon_tpu.py:350", [npairs, 4], launches["node_hash"],
+          time_ms(lambda: pc.node_hash(l, r), 7),
+          time_ms(lambda: pc.node_hash_plain(l, r), 2),
+          perm_bound_ms(npairs, npairs * 12 * 8),
+          bound_ms_sboxes_only=bound_ms(npairs * 12 * 8,
+                                        npairs * PERM_SBOX_MUL64)[0],
+          per_proof_ms=sum(per_level[n] for n in node_sizes),
+          per_proof_bound_ms=sum(perm_bound_ms(n, n * 12 * 8)[0]
+                                 for n in node_sizes),
+          per_proof_idle_card_ms=sum(per_level_idle[n] for n in node_sizes),
+          per_level_ms={str(n): per_level[n] for n in sorted(per_level)},
+          per_level_idle_card_ms={str(n): per_level_idle[n]
+                                  for n in sorted(per_level)},
+          launches_per_level={str(n): node_sizes.count(n)
+                              for n in sorted(per_level)})
+    del l, r, lvl, lvl_out
 
-    # kernel B of the forward transform of the widest section's LDE
-    log_l, b = ntt_cuda.MAX_KERNEL_BITS, (n_ext // n2) * wmax
-    x = rnd(n2, b)
-    t = tw(log_l, False)
-    hold("ntt_block", f"main path ({n2}, {b})",
-         ntt_cuda.ntt_block(x, t, log_l, False),
-         ntt_cuda.ntt_block_plain(x, t, log_l, False))
-    b_ms, b_by = bound_ms(2 * n2 * b * 8 + (n2 - 1) * 8,
-                          (n2 // 2) * (log_l - 1) * b)
-    entries.append({
-        "name": "ntt_block", "route": "cuda",
-        "source": "merlin_zkevm_prover_tpu_torch/csrc/ntt_gl.cu",
-        "replaces": "merlin_zkevm_prover_tpu/ops/ntt_tpu.py:736",
-        "shape": [n2, b], "launches": launches["ntt_block"],
-        "max_abs_err": worst["ntt_block"],
-        "ms": time_ms(lambda: ntt_cuda.ntt_block(x, t, log_l, False), 7),
-        "plain_ms": time_ms(lambda: ntt_cuda.ntt_block_plain(x, t, log_l, False), 2),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-
-    # FRI's first fold: INTT of length 4 over (4, pol2N * 3)
+    # K4: FRI's first fold, INTT of length 4 over (4, pol2N * 3)
     fold = info.fri_step_bits[0] - info.fri_step_bits[1]
     b = (n_ext >> fold) * 3
     x = rnd(1 << fold, b)
     t = tw(fold, True)
     hold("ntt_short", f"main path ({1 << fold}, {b})",
          ntt_cuda.ntt_short(x, t, fold), ntt_cuda.ntt_short_plain(x, t, fold))
-    b_ms, b_by = bound_ms(2 * (1 << fold) * b * 8,
-                          (1 << fold) // 2 * (fold - 1) * b)
-    entries.append({
-        "name": "ntt_short", "route": "cuda",
-        "source": "merlin_zkevm_prover_tpu_torch/csrc/ntt_gl.cu",
-        "replaces": "merlin_zkevm_prover_tpu/ops/ntt_tpu.py:192",
-        "shape": [1 << fold, b], "launches": launches["ntt_short"],
-        "max_abs_err": worst["ntt_short"],
-        "ms": time_ms(lambda: ntt_cuda.ntt_short(x, t, fold), 7),
-        "plain_ms": time_ms(lambda: ntt_cuda.ntt_short_plain(x, t, fold), 2),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    entry("ntt_short", "ntt_tpu.py:192", [1 << fold, b], launches["ntt_short"],
+          time_ms(lambda: ntt_cuda.ntt_short(x, t, fold), 7),
+          time_ms(lambda: ntt_cuda.ntt_short_plain(x, t, fold), 2),
+          call_bound_ms("ntt_short", {"x": x, "log_l": fold}),
+          **per_proof_keys(proof_times["ntt_short"]))
+
+    # K5: kernel B of the forward transform of the widest section's LDE
+    log_l, b = ntt_cuda.MAX_KERNEL_BITS, (n_ext // n2) * wmax
+    x = rnd(n2, b)
+    t = tw(log_l, False)
+    hold("ntt_block", f"main path ({n2}, {b})",
+         ntt_cuda.ntt_block(x, t, log_l, False),
+         ntt_cuda.ntt_block_plain(x, t, log_l, False))
+    entry("ntt_block", "ntt_tpu.py:736", [n2, b], launches["ntt_block"],
+          time_ms(lambda: ntt_cuda.ntt_block(x, t, log_l, False), 7),
+          time_ms(lambda: ntt_cuda.ntt_block_plain(x, t, log_l, False), 2),
+          call_bound_ms("ntt_block", dict(x=x, log_l=log_l, u=None, v=None,
+                                          const_scale=None)),
+          **per_proof_keys(proof_times["ntt_block"]))
+
+    # K6: kernel A of the n_bits 11 proof's widest LDE, n_bits 11 -> 12: the
+    # INTT at L = 4 and the forward transform at L = 8 with zero_top
+    c11 = max(info11.section_widths.values())
+    k6 = {}
+    for what, nb, inverse, zero_top in (("intt", info11.n_bits, True, False),
+                                        ("lde", info11.n_bits_ext, False, True)):
+        log_l, log_n2 = ntt_cuda._split(nb)
+        l, b = 1 << log_l, (1 << log_n2) * c11
+        x = rnd(l // 2 if zero_top else l, b)
+        t = tw(log_l, inverse)
+        hold("ntt_block_short", f"path ({l}, {b}), {what}",
+             ntt_cuda.ntt_block(x, t, log_l, True, zero_top=zero_top),
+             ntt_cuda.ntt_block_plain(x, t, log_l, True, zero_top=zero_top))
+        k6[what] = (
+            [l, b],
+            time_ms(lambda: ntt_cuda.ntt_block(x, t, log_l, True,
+                                               zero_top=zero_top), 7),
+            time_ms(lambda: ntt_cuda.ntt_block_plain(
+                x, t, log_l, True, zero_top=zero_top), 2),
+            call_bound_ms("ntt_block_short", dict(
+                x=x, log_l=log_l, u=None, v=None, const_scale=None)))
+    shape, ms, plain_ms, bound = k6["lde"]
+    entry("ntt_block_short", "ntt_tpu.py:517", shape,
+          golden_launches[11]["ntt_block_short"], ms, plain_ms, bound,
+          path="golden proof, n_bits 11", input_rows=shape[0] // 2,
+          intt_shape=k6["intt"][0], intt_ms=k6["intt"][1],
+          intt_plain_ms=k6["intt"][2], intt_bound_ms=k6["intt"][3][0],
+          **per_proof_keys(k6_proof))
 
     emit({"phase": "main_path_shapes_check", "mismatches": 0,
-          "cases": [c for c in checks if c["case"].startswith("main path")]})
+          "cases": [c for c in checks
+                    if c["case"].startswith(("main path", "path"))]})
     emit({"phase": "done", "seconds": time.time() - t_start, "card": card})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,9 @@
-// Poseidon-Goldilocks kernels: the rate-8 row sponge (linear_hash) and the
-// Merkle pair hash (node_hash).  One thread holds one 12-word state in
-// registers and runs all 30 rounds of every permutation it needs; the 360
-// round constants and the MDS circulant sit in __constant__ memory, which
-// broadcasts a word to the whole warp when all threads read the same
-// address, as they do here.
+// Poseidon-Goldilocks kernels: the batched permutation (permute), the rate-8
+// row sponge (linear_hash) and the Merkle pair hash (node_hash).  One thread
+// holds one 12-word state in registers and runs all 30 rounds of every
+// permutation it needs; the 360 round constants and the MDS circulant sit in
+// __constant__ memory, which broadcasts a word to the whole warp when all
+// threads read the same address, as they do here.
 //
 // Plain C interface: every entry point launches on the given stream,
 // allocates nothing, does not synchronise and returns cudaGetLastError().
@@ -72,6 +72,23 @@ __device__ __forceinline__ void pg_permute(uint64_t s[PG_WIDTH]) {
     }
 }
 
+// state: (12, B) lane-major words in [0, 2^64): word i of state k at
+// i * B + k, the layout of the reference's permute_tpu.  out: (12, B)
+// canonical, same layout.  One thread per state: for each word the threads of
+// a warp read and write 32 neighbouring addresses, so every access is
+// coalesced.
+__global__ void pg_permute_kernel(const uint64_t* __restrict__ state,
+                                  uint64_t* __restrict__ out, long long b) {
+    long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= b) return;
+    uint64_t s[PG_WIDTH];
+#pragma unroll
+    for (int i = 0; i < PG_WIDTH; ++i) s[i] = gl_canon(state[i * b + k]);
+    pg_permute(s);
+#pragma unroll
+    for (int i = 0; i < PG_WIDTH; ++i) out[i * b + k] = s[i];
+}
+
 // rows: (H, W) row-major words in [0, 2^64), W > 4.  out: (H, 4) canonical.
 // One thread per row: capacity starts at zero; per rate-8 chunk the state
 // is [chunk | capacity], the last chunk zero-padded; the new capacity is
@@ -130,6 +147,16 @@ extern "C" int merlin_poseidon_set_constants(const uint64_t* rc,
     if (e != cudaSuccess) return (int)e;
     e = cudaMemcpyToSymbol(PG_DIAG0, &diag0, sizeof(uint32_t));
     return (int)e;
+}
+
+extern "C" int merlin_permute(const void* state, void* out, long long b,
+                              void* stream) {
+    if (b <= 0) return 0;
+    const int threads = 128;
+    long long blocks = (b + threads - 1) / threads;
+    pg_permute_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint64_t*)state, (uint64_t*)out, b);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int merlin_linear_hash(const void* rows, void* out, long long h,

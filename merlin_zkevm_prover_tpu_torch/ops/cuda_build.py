@@ -105,6 +105,8 @@ def lib() -> ctypes.CDLL:
             vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             cdll.merlin_poseidon_set_constants.argtypes = [vp, vp, ctypes.c_uint32]
             cdll.merlin_poseidon_set_constants.restype = ci
+            cdll.merlin_permute.argtypes = [vp, vp, ll, vp]
+            cdll.merlin_permute.restype = ci
             cdll.merlin_linear_hash.argtypes = [vp, vp, ll, ci, vp]
             cdll.merlin_linear_hash.restype = ci
             cdll.merlin_node_hash.argtypes = [vp, vp, ll, vp, ll, vp]

@@ -1,8 +1,9 @@
 """Goldilocks NTT on the GPU: one CUDA block kernel and the pipeline around it.
 
 Counterpart of the reference's ``ops/ntt_tpu.py``.  One CUDA kernel
-(``csrc/ntt_gl.cu``) serves two wrappers, each with its plain PyTorch twin
-of the same signature and its own launch counter:
+(``csrc/ntt_gl.cu``) serves two wrappers and three TPU kernels, each wrapper
+with its plain PyTorch twin of the same signature, each TPU kernel with its
+own launch counter:
 
 ``ntt_block``  replaces ``_ntt_kernel_v3`` (``_ntt_call_v2``): a length
     L <= 512 transform along axis 0 of an (L, B) matrix, decimation in
@@ -10,9 +11,12 @@ of the same signature and its own launch counter:
     natural out), with the fused epilogues of the reference: ``zero_top``
     (only the lower L/2 input rows exist; the upper half is the LDE's zero
     padding), a separable scale ``u[row] * v[col]`` and a constant scale.
-    The same kernel takes every length from 2 up, so the lengths below 16
-    that the reference hands to its radix-4 ``_ntt_kernel_v2`` are served
-    too.
+``ntt_block`` at L < 16  replaces ``_ntt_kernel_v2`` (same call, which the
+    reference takes below length 16): the same contract, which the same
+    kernel computes at every length from 2 up.  On the reference's paths
+    these lengths are kernel A of the pipeline at n_bits 10 to 12 (DIF,
+    unscaled, ``zero_top`` on the forward LDE).  Its launches are counted
+    apart, under ``ntt_block_short``.
 ``ntt_short``  replaces ``_ntt_kernel`` (``_ntt_call``, ``_ntt_leading``):
     the unscaled decimation-in-time transform of a bit-reversed block, no
     epilogue.  FRI's fold INTT over (4, pol2N * 3) comes through here, and
@@ -56,7 +60,9 @@ MAX_KERNEL_BITS = 9    # block length cap, kept so the reference's tables carry 
 PIPELINE_MIN_BITS = 10
 PIPELINE_MAX_BITS = 2 * MAX_KERNEL_BITS
 
-LAUNCHES = {"ntt_block": 0, "ntt_short": 0}
+SHORT_BLOCK_BITS = 3   # ntt_block at L <= 8 stands for the reference's v2 body
+
+LAUNCHES = {"ntt_block": 0, "ntt_block_short": 0, "ntt_short": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -260,7 +266,7 @@ def ntt_block(x: GL, tw: GL, log_l: int, dif: bool, zero_top: bool = False,
     if x.shape[1] == 0:
         return x.new_zeros((1 << log_l, 0))
     out, code = _launch_block(x, tw, log_l, dif, zero_top, u, v, const_scale)
-    LAUNCHES["ntt_block"] += 1
+    LAUNCHES["ntt_block_short" if log_l <= SHORT_BLOCK_BITS else "ntt_block"] += 1
     cuda_build.check(code, "ntt_block launch")
     return out
 

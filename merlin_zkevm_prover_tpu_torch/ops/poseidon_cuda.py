@@ -1,8 +1,19 @@
-"""Poseidon-Goldilocks Merkle commitment: CUDA kernels and their plain twins.
+"""Poseidon-Goldilocks permutation and Merkle commitment: CUDA kernels and
+their plain twins.
 
-Counterpart of the reference's ``ops/poseidon_tpu.py``.  The plain tensor
-permutation ``permute`` (which the plain versions of both kernels call, and
-``poseidon_gl`` re-exports) and two kernels, both in ``csrc/poseidon_gl.cu``:
+Counterpart of the reference's ``ops/poseidon_tpu.py``.  Three kernels, all
+in ``csrc/poseidon_gl.cu``, each with a plain PyTorch twin here
+(``permute_plain``, which the other two plain versions call, and
+``linear_hash_plain``, ``node_hash_plain``):
+
+``permute``  replaces ``_permute_kernel`` (``_permute_call``,
+    ``permute_tpu``): the 30-round permutation of a batch of states in the
+    reference's lane-major ``(12, B)`` layout.  One thread per state, the
+    state in registers; thread ``k`` reads word ``i`` at ``i * B + k``, so
+    every load and store of a warp is coalesced.  Bound: 96 bytes in and 96
+    out per permutation against thousands of 32-bit multiply-adds, so the
+    card's integer multiply rate bounds it, not its memory.  The kernel runs
+    the same dense-MDS rounds as the two below.
 
 ``linear_hash``  replaces ``_linear_hash_kernel`` (``_linear_hash_call``,
     ``linear_hash_tpu``).  One thread per row of the row-major (H, W)
@@ -60,7 +71,7 @@ N_ROUNDS = N_FULL_ROUNDS + N_PARTIAL_ROUNDS
 _HALF_F = N_FULL_ROUNDS // 2
 _MASK32 = 0xFFFFFFFF
 
-LAUNCHES = {"linear_hash": 0, "node_hash": 0}
+LAUNCHES = {"permute": 0, "linear_hash": 0, "node_hash": 0}
 
 _constants_set = False
 
@@ -98,7 +109,7 @@ def _pad_narrow(rows: GL) -> GL:
 
 
 # ---------------------------------------------------------------------------
-# The plain permutation, which the plain versions of both kernels share
+# permute (its plain version is the one the other two plain versions call)
 # ---------------------------------------------------------------------------
 
 
@@ -132,11 +143,12 @@ def _rc_np() -> np.ndarray:
     )
 
 
-def permute(state: GL) -> GL:
-    """The 30-round Poseidon permutation; state is (12, batch) or (12,)."""
+def permute_plain(state: GL) -> GL:
+    """Plain PyTorch 30-round permutation; state is (12, batch) or (12,),
+    words in [0, 2^64); output canonical."""
     assert state.shape[0] == WIDTH
     squeeze = state.ndim == 1
-    st = state.reshape(WIDTH, -1)
+    st = gl.canon(state.reshape(WIDTH, -1))
     rc = gl.from_u64(_rc_np(), st.device)
     for r in range(N_ROUNDS):
         st = gl.add(st, rc[r][:, None])
@@ -146,6 +158,30 @@ def permute(state: GL) -> GL:
             st = torch.cat([gl.pow7(st[:1]), st[1:]], dim=0)
         st = _mds(st)
     return st.reshape(WIDTH) if squeeze else st
+
+
+def permute(state: GL) -> GL:
+    """The 30-round Poseidon permutation of a (12, batch) or (12,) state,
+    words in [0, 2^64); output canonical, same shape."""
+    if state.dtype != torch.int64:
+        raise TypeError(f"permute: expected int64 carrier, got {state.dtype}")
+    if state.ndim not in (1, 2) or state.shape[0] != WIDTH:
+        raise ValueError(f"permute: expected (12,) or (12, B), got "
+                         f"{tuple(state.shape)}")
+    if state.device.type == "cpu":
+        return permute_plain(state)
+    if state.device.type != "cuda":
+        raise RuntimeError(f"permute: unsupported device {state.device}")
+    st = state.reshape(WIDTH, -1).contiguous()
+    out = torch.empty_like(st)
+    if st.shape[1]:
+        lib = _lib()
+        with torch.cuda.device(st.device):
+            code = lib.merlin_permute(st.data_ptr(), out.data_ptr(),
+                                      st.shape[1], cuda_build.stream_ptr())
+        LAUNCHES["permute"] += 1
+        cuda_build.check(code, "permute launch")
+    return out.reshape(state.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +207,7 @@ def linear_hash_plain(rows: GL) -> GL:
     xs = rows.reshape(n_rows, n_chunks, RATE).permute(1, 2, 0)
     digest = rows.new_zeros((CAPACITY, n_rows))
     for ci in range(n_chunks):
-        digest = permute(torch.cat([xs[ci], digest], dim=0))[:CAPACITY]
+        digest = permute_plain(torch.cat([xs[ci], digest], dim=0))[:CAPACITY]
     return digest.T.contiguous()
 
 
@@ -208,7 +244,7 @@ def node_hash_plain(left: GL, right: GL) -> GL:
     _check(right, "node_hash right", 2)
     n = left.shape[0]
     state = torch.cat([left.T, right.T, left.new_zeros((CAPACITY, n))], dim=0)
-    return permute(state)[:HASH_SIZE].T.contiguous()
+    return permute_plain(state)[:HASH_SIZE].T.contiguous()
 
 
 def _launch_node_hash(left_ptr: int, right_ptr: int, stride: int,

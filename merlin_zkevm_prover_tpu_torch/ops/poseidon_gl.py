@@ -13,11 +13,11 @@ to all lanes (full rounds: first 4 and last 4) or lane 0 only (22 partial
 rounds), then multiplies by the circulant-plus-diagonal MDS matrix.
 
 The tensor forms live in :mod:`.poseidon_cuda` and are re-exported here
-under the reference's names: ``permute`` is plain tensor code on a
-(12, batch) state; ``linear_hash``, ``node_hash``, ``merkle_nodes`` and
-``merkelize`` are the dispatching wrappers (CUDA kernels for a tensor on the
-GPU, the plain versions for one on the CPU).  This module adds the
-python-int host forms.
+under the reference's names (its ``poseidon_gl.permute`` and
+``permute_tpu`` are one function here): ``permute``, ``linear_hash``,
+``node_hash``, ``merkle_nodes`` and ``merkelize`` are the dispatching
+wrappers (CUDA kernels for a tensor on the GPU, the plain versions for one
+on the CPU).  This module adds the python-int host forms.
 """
 
 from __future__ import annotations

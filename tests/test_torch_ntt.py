@@ -126,6 +126,24 @@ _K5_FLAGS = {
 }
 
 
+def _planes(x):
+    import jax.numpy as jnp
+
+    return (jnp.asarray((x & np.uint64(0xFFFFFFFF)).astype(np.uint32)),
+            jnp.asarray((x >> np.uint64(32)).astype(np.uint32)))
+
+
+def _pallas_block(nt, call, log_l, inverse, extras, a):
+    """Run a pallas block call on the (rows, cols) matrix `a`, padded to one
+    block of the reference's column width; the result reduced modulo p."""
+    padded = np.zeros((a.shape[0], nt._BC), dtype=np.uint64)
+    padded[:, :a.shape[1]] = a
+    tw_lo, tw_hi = nt._stage_tables(log_l, inverse)
+    lo, hi = call(tw_lo, tw_hi, extras, *_planes(padded))
+    return ((np.asarray(hi).astype(np.uint64) << np.uint64(32))
+            | np.asarray(lo).astype(np.uint64))[:, :a.shape[1]] % np.uint64(P)
+
+
 @pytest.mark.parametrize("flags", list(_K5_FLAGS))
 def test_block_matches_pallas_v3_kernel_interpret(flags):
     """The body of the reference's SSA block kernel (`_ntt_kernel_v3`), run
@@ -133,8 +151,6 @@ def test_block_matches_pallas_v3_kernel_interpret(flags):
     shortest it takes), against the port's block transform with the same
     flags.  The reference's output may be a lazy residue where `canon` is
     off, so both sides are compared reduced modulo p."""
-    import jax.numpy as jnp
-
     from merlin_zkevm_prover_tpu.ops import ntt_tpu as nt
 
     if not nt.HAVE_PALLAS:
@@ -149,24 +165,15 @@ def test_block_matches_pallas_v3_kernel_interpret(flags):
     a[1, 1] = 1                                   # one-hot column
     u, v = _rand((l,), 11), _rand((cols,), 12)
 
-    def planes(x):
-        return (jnp.asarray((x & np.uint64(0xFFFFFFFF)).astype(np.uint32)),
-                jnp.asarray((x >> np.uint64(32)).astype(np.uint32)))
-
-    padded = np.zeros((in_l, nt._BC), dtype=np.uint64)
-    padded[:, :cols] = a
     extras = {}
     if sep:
         v_pad = np.zeros((nt._BC,), dtype=np.uint64)
         v_pad[:cols] = v
-        extras["u_lo"], extras["u_hi"] = planes(u[:, None])
-        extras["v_lo"], extras["v_hi"] = planes(v_pad[None, :])
+        extras["u_lo"], extras["u_hi"] = _planes(u[:, None])
+        extras["v_lo"], extras["v_hi"] = _planes(v_pad[None, :])
     call = nt._ntt_call_v2(log_l, 1, dif, zero_top, sep, canon, const_scale,
                            True, inverse, True)
-    tw_lo, tw_hi = nt._stage_tables(log_l, inverse)
-    lo, hi = call(tw_lo, tw_hi, extras, *planes(padded))
-    want = ((np.asarray(hi).astype(np.uint64) << np.uint64(32))
-            | np.asarray(lo).astype(np.uint64))[:, :cols] % np.uint64(P)
+    want = _pallas_block(nt, call, log_l, inverse, extras, a)
 
     kw = dict(zero_top=zero_top, const_scale=const_scale)
     if sep:
@@ -174,6 +181,41 @@ def test_block_matches_pallas_v3_kernel_interpret(flags):
     tw = gl.from_u64(ntt_cuda._stage_tables_np(log_l, inverse), CPU)
     got = gl.to_u64(ntt_cuda.ntt_block(gl.from_u64(a, CPU), tw, log_l, dif, **kw))
     assert np.array_equal(got, want)
+
+
+# Kernel A of the reference's pipeline (`_ntt_v2`) at n_bits 10, 11 and 12,
+# the only place its v2 body runs: DIF, unscaled, no canon, forward or
+# inverse twiddles, zero_top on the forward LDE.  The LDE reaches kernel A
+# with zero_top only at n_bits_ext >= 11, i.e. never at L = 2.
+_K6_CASES = [(1, False, False), (1, False, True),
+             (2, False, False), (2, False, True), (2, True, False),
+             (3, False, False), (3, False, True), (3, True, False)]
+
+
+@pytest.mark.parametrize("log_l,zero_top,inverse", _K6_CASES)
+def test_block_matches_pallas_v2_kernel_interpret(log_l, zero_top, inverse):
+    """The body of the reference's radix-2/4 block kernel (`_ntt_kernel_v2`,
+    which `_ntt_call_v2` takes below length 16), run by the Pallas
+    interpreter on one full 256-column block, against the port's block
+    transform with kernel A's flags.  `canon` is off there, so both sides are
+    compared reduced modulo p."""
+    from merlin_zkevm_prover_tpu.ops import ntt_tpu as nt
+
+    if not nt.HAVE_PALLAS:
+        pytest.skip("pallas unavailable")
+    l = 1 << log_l
+    in_l = l // 2 if zero_top else l
+    a = _rand((in_l, nt._BC), 700 + 10 * log_l + 2 * zero_top + inverse)
+    a[0, 0], a[-1, 0] = P - 1, 1 << 32
+    a[:, 1] = 0
+    a[-1, 1] = 1                                  # one-hot column
+    call = nt._ntt_call_v2(log_l, 1, True, zero_top, False, False, None, True,
+                           inverse)
+    want = _pallas_block(nt, call, log_l, inverse, {}, a)
+    tw = gl.from_u64(ntt_cuda._stage_tables_np(log_l, inverse), CPU)
+    got = ntt_cuda.ntt_block(gl.from_u64(a, CPU), tw, log_l, True,
+                             zero_top=zero_top)
+    assert np.array_equal(gl.to_u64(got), want)
 
 
 @pytest.mark.parametrize("nbits", [10, 11])
@@ -301,4 +343,5 @@ def test_wrappers_reject_bad_operands():
         ntt_cuda.ntt_block(torch.zeros((8, 2), dtype=torch.int32), tw, 3, True)
     with pytest.raises(ValueError):
         ntt_cuda.ntt_short(torch.zeros((8, 2), dtype=torch.int64), tw[:3], 3)
-    assert ntt_cuda.LAUNCHES == {"ntt_block": 0, "ntt_short": 0}
+    assert ntt_cuda.LAUNCHES == {"ntt_block": 0, "ntt_block_short": 0,
+                                 "ntt_short": 0}

@@ -1,6 +1,7 @@
 """The port's Poseidon-Goldilocks (plain PyTorch path on the CPU) against
-the python-int host forms, the JAX plain path and the Pallas row-sponge
-kernel in interpret mode.  All comparisons are exact (tolerance zero)."""
+the python-int host forms, the JAX plain path and the Pallas permutation and
+row-sponge kernels in interpret mode.  All comparisons are exact (tolerance
+zero)."""
 
 import numpy as np
 import pytest
@@ -43,11 +44,55 @@ def test_permute_matches_host_and_reference():
     got = gl.to_u64(pg.permute(gl.from_u64(st, CPU)))
     for i in range(6):
         assert _ints(got[:, i]) == pg.permute_host(_ints(st[:, i]))
-    assert np.array_equal(got, jgl.to_u64(jpg.permute(jgl.from_u64(st))))
+    want = jgl.to_u64(jpg.permute(jgl.from_u64(st)))
+    assert np.array_equal(got, want)
+    plain = gl.to_u64(poseidon_cuda.permute_plain(gl.from_u64(st, CPU)))
+    assert np.array_equal(plain, want)
     one = gl.to_u64(pg.permute(gl.from_u64(st[:, 0], CPU)))
     assert np.array_equal(one, got[:, 0])
     assert pg.permute_host(_ints(st[:, 2])) == jpg.permute_host(_ints(st[:, 2]))
     assert pg.hash_host(_ints(st[:, 3])) == jpg.hash_host(_ints(st[:, 3]))
+
+
+def test_permute_takes_any_word():
+    """Words in [p, 2^64) are read modulo p, as the kernel and the
+    reference's permute_tpu read them; edge words in every lane."""
+    st = _rand((12, 9), 3)
+    for i in range(12):
+        st[i, :8] = np.roll(np.array(EDGE + [P, (1 << 64) - 1], dtype=np.uint64), i)
+    got = gl.to_u64(pg.permute(gl.from_u64(st, CPU)))
+    for k in range(9):
+        assert _ints(got[:, k]) == pg.permute_host(_ints(st[:, k]))
+
+
+def test_permute_matches_pallas_kernel_interpret(monkeypatch):
+    """The TPU permutation kernel (`_permute_kernel` through `permute_tpu`),
+    run under the Pallas interpreter with the batch tile shrunk as the
+    reference's own tests do, at B = 16 and at B = 130 (not a multiple of
+    128).  Both batches pad to the same tiles, so the interpreter compiles
+    once (about two minutes on a CPU) and runs twice."""
+    from merlin_zkevm_prover_tpu.ops import poseidon_tpu as pt
+
+    if not pt.HAVE_PALLAS:
+        pytest.skip("pallas unavailable")
+    monkeypatch.setattr(pt, "R_SUB", 1)
+    monkeypatch.setattr(pt, "BLOCK_B", 128)
+    pt._permute_call.cache_clear()
+    states, wants = [], []
+    try:
+        for batch in (16, 130):
+            st = _rand((12, batch), 20 + batch)
+            for i in range(12):
+                st[i, :len(EDGE)] = np.roll(np.array(EDGE, dtype=np.uint64), i)
+            states.append(st)
+            wants.append(jgl.to_u64(pt.permute_tpu(jgl.from_u64(st),
+                                                   interpret=True)))
+    finally:
+        pt._permute_call.cache_clear()
+    for st, want in zip(states, wants):
+        got = gl.to_u64(poseidon_cuda.permute(gl.from_u64(st, CPU)))
+        assert np.array_equal(got, want)
+        assert _ints(got[:, -1]) == pg.permute_host(_ints(st[:, -1]))
 
 
 @pytest.mark.parametrize("width", [3, 4, 5, 8, 9, 21])
@@ -142,4 +187,9 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError):
         poseidon_cuda.node_hash(torch.zeros((4, 4), dtype=torch.int64),
                                 torch.zeros((3, 4), dtype=torch.int64))
-    assert poseidon_cuda.LAUNCHES == {"linear_hash": 0, "node_hash": 0}
+    with pytest.raises(TypeError):
+        poseidon_cuda.permute(torch.zeros((12, 3), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        poseidon_cuda.permute(torch.zeros((8, 3), dtype=torch.int64))
+    assert poseidon_cuda.LAUNCHES == {"permute": 0, "linear_hash": 0,
+                                      "node_hash": 0}

@@ -10,7 +10,7 @@ reference proofs are kept as files under ``tests/data/``, written by
 ``write_golden`` below, which runs the JAX prover only when asked:
 
     MERLIN_WRITE_GOLDEN=1 MERLIN_STEP_MAX_NODES=12 MERLIN_STEP5_MATRIX_MIN=0 \
-        python tests/test_torch_stark_e2e.py 5 13
+        python tests/test_torch_stark_e2e.py 5 10 11 13
 
 The two ``MERLIN_STEP*`` settings are the reference's own: they make its
 prover evaluate the step programs in 12-node chunks and step 5 in the matrix
@@ -38,11 +38,15 @@ torch.set_num_threads(1)
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
-# n_bits -> compile_air settings (5: those of tests/test_stark_e2e.py; 13:
-# the smallest size whose two LDE lengths both split into block transforms
-# of length 16 and more)
+# n_bits -> compile_air settings (5: those of tests/test_stark_e2e.py; 10 and
+# 11: the LDE's first pass runs block transforms of length 2, 4 and 8, the
+# reference's v2 block kernel, on the 27-column cm3 section; 13: the
+# smallest size whose two LDE lengths both split into block transforms of
+# length 16 and more)
 SETTINGS = {
     5: dict(n_queries=6, final_bits=3, fri_fold_bits=2),
+    10: dict(n_queries=8),
+    11: dict(n_queries=8),
     13: dict(n_queries=8),
 }
 SEED = 42
