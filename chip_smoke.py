@@ -10,8 +10,15 @@ and the exit code is non-zero unless every phase passed):
   device   the card's name and power limit, versions, the kernel build
   kernels  every kernel against its plain PyTorch version on the card, exact
            equality, at the main paths' shapes and at edge shapes: permute at
-           B = 1, 127, 128 and 270,600 with edge words in every lane, the
-           block NTT at L = 2, 4, 8, 16, 256 and 512 with each flag set
+           B = 1, 127, 128 and 270,600 with edge words in every lane;
+           linear_hash at widths 5 to 665 with edge words (two of them in
+           [p, 2^64)) across the first rows;
+           node_hash at every boundary of its dispatch (1, 2, 3 pairs and
+           each threshold -1, at, +1, through the wrapper and through each
+           of its one-level kernels); Merkle levels of trees of 2^1 .. 2^18
+           leaves, edge words in every lane, against the plain levels on
+           the card; the block NTT at L = 2, 4, 8, 16, 256 and 512 with each
+           flag set
   permute  K1's path: the batched permutation entry point
            (``ops.poseidon_gl.permute``) on a (12, 270600) state, the
            PoseidonG state machine's capacity at 2^23 rows; columns checked
@@ -28,7 +35,10 @@ and the exit code is non-zero unless every phase passed):
 Each path (permute, each golden proof, prove) is driven with every launch
 counter set to 0 just before it and read just after.
 
-Output: one JSON object per line.  The line before the last lists every
+Output: one JSON object per line.  An early line (phase
+``poseidon_build``) gives each Poseidon kernel's registers and spills from
+the build log; the ``prove`` line gives the node-hash launches per kernel
+variant.  The line before the last lists every
 kernel (K1 to K6) with its launches on its path, its error against the
 plain version, its time, the plain version's time and the card's bound for
 the same work.  The last line is
@@ -41,7 +51,6 @@ from __future__ import annotations
 import inspect
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -58,19 +67,16 @@ import torch
 MEM_BYTES_PER_S = 3.35e12
 IMAD32_PER_S = 33.5e12 / 2
 IMAD_PER_MUL64 = 4
-# Poseidon permutation, counted as the function needs it, not as the kernel
-# does it.  S-boxes: x^7 is 4 field multiplies, on 12 lanes in the 8 full
-# rounds and on one lane in the 22 partial rounds.  Linear layer: in a full
-# round the 12 x 12 (+1 diagonal) small-coefficient MDS, two 32-bit
-# multiply-adds (one per half of the word) for each entry; the partial rounds
-# in their sparse factorisation (the C/S/M/P matrices of the C++ zkevm-prover
-# and Plonky2), whose entries are full field elements: 12 + 11 field
-# multiplies a round and one 11 x 11 matrix before the first.  The kernel
-# itself runs the dense MDS in all 30 rounds (30 * 2 * 145 = 8700
-# multiply-adds), so the bound is below what its own algorithm could reach.
-PERM_SBOX_MUL64 = 4 * (8 * 12 + 22)
-PERM_MUL64 = PERM_SBOX_MUL64 + 22 * (12 + 11) + 11 * 11
-PERM_IMAD32 = 8 * 2 * (12 * 12 + 1)
+# Poseidon permutation, counted as the function needs it.  Its only products
+# of two field elements are the S-boxes': x^7 = x^3 * x^4 with x^3 = x^2 * x,
+# two squares (three 32-bit partial products each: lo*lo, lo*hi doubled,
+# hi*hi) and two products (four each), on 12 lanes in the 8 full rounds and
+# on one lane in the 22 partial rounds: 118 S-boxes of 14 multiply-adds.
+# The linear layer is an integer matrix with entries below 2^6 (the kernel
+# runs it in the frequency domain, whose constants, at most 16 in magnitude,
+# shifts and adds can apply) and the reductions mod p shift and add, so
+# neither is counted, nor is any add: the bound is below any algorithm's.
+PERM_IMAD32 = (8 * 12 + 22) * (2 * 3 + 2 * 4)
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -82,15 +88,9 @@ def bound_ms(n_bytes: float, mul64: float, imad32: float = 0.0):
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
-# ~0.5 ms of GPU spin ahead of a timed call: the host enqueues the call's
-# launches (tens of microseconds of python and ctypes each) while the card is
-# still busy, so the events time the card's work and not the host's.
-PREFILL_CYCLES = 1_000_000
-
-
 def perm_bound_ms(n_perm: int, n_bytes: float):
     """Bound of `n_perm` Poseidon permutations moving `n_bytes`."""
-    return bound_ms(n_bytes, n_perm * PERM_MUL64, n_perm * PERM_IMAD32)
+    return bound_ms(n_bytes, 0, n_perm * PERM_IMAD32)
 
 
 def call_bound_ms(kernel: str, a: dict):
@@ -109,26 +109,6 @@ def call_bound_ms(kernel: str, a: dict):
         n_bytes += (l * 8 if a["u"] is not None else 0) + (
             b * 8 if a["v"] is not None else 0)
     return bound_ms(n_bytes, mul64)
-
-
-def time_ms(fn, runs: int, prefill: bool = True) -> float:
-    """Median over `runs` single calls, CUDA events, after one warm-up.
-    With `prefill` off the card is idle when the call starts, so the time
-    includes the host's cost of issuing it."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        if prefill:
-            torch.cuda._sleep(PREFILL_CYCLES)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -158,6 +138,7 @@ def main() -> int:
     from merlin_zkevm_prover_tpu_torch.stark import (
         MerkleTreeGL, StarkProof, StarkProver, VerifyError, compile_air, verify)
     from merlin_zkevm_prover_tpu_torch.utils.timer import TimerLog
+    from merlin_zkevm_prover_tpu_torch.utils.timer import device_time_ms as time_ms
 
     t_start = time.time()
     root_dir = os.path.dirname(os.path.abspath(__file__))
@@ -192,8 +173,15 @@ def main() -> int:
             st[i, :k] = gl.from_u64(np.roll(lane_vals, i)[:k], dev)
         return st
 
+    def edge_rows(x: torch.Tensor) -> torch.Tensor:
+        """Plant the edge words across row j of an (H, W) matrix, rotated
+        by j, for the first rows."""
+        for j in range(min(len(lane_vals), x.shape[0])):
+            x[j] = gl.from_u64(np.resize(np.roll(lane_vals, j), x.shape[1]), dev)
+        return x
+
     def zero_counters() -> None:
-        for counters in (pc.LAUNCHES, ntt_cuda.LAUNCHES):
+        for counters in (pc.LAUNCHES, pc.NODE_HASH_LAUNCHES, ntt_cuda.LAUNCHES):
             for k in counters:
                 counters[k] = 0
 
@@ -209,7 +197,7 @@ def main() -> int:
         by its pair count.  Returns the log and a function that puts the
         wrappers back."""
         log = {k: [] for k in ("linear_hash", "node_hash", "ntt_short",
-                               "ntt_block", "ntt_block_short")}
+                               "ntt_block", "ntt_block_short", "merkle")}
         saved = []
 
         def wrap(mod, name, kernel_of):
@@ -223,7 +211,7 @@ def main() -> int:
                 kernel = kernel_of(call.arguments)
                 if kernel is not None:
                     log[kernel].append((orig, {
-                        k: tuple(v.shape) if k in ("rows", "x") else v
+                        k: tuple(v.shape) if k in ("rows", "x", "nodes") else v
                         for k, v in call.arguments.items()}))
                 return orig(*args, **kw)
             setattr(mod, name, logged)
@@ -236,6 +224,9 @@ def main() -> int:
             "ntt_block_short" if a["log_l"] <= ntt_cuda.SHORT_BLOCK_BITS
             else "ntt_block"))
         wrap(pc, "_launch_node_hash", lambda a: "node_hash")
+        wrap(pc, "_launch_merkle_top", lambda a: "node_hash")
+        wrap(pc, "merkle_levels_", lambda a: "merkle" if a["nodes"].is_cuda
+             else None)
 
         def restore():
             for mod, name, orig in saved:
@@ -269,6 +260,10 @@ def main() -> int:
           "kernel_build_s": cuda_build.BUILD_SECONDS,
           "kernel_sources": [s.name for s in cuda_build._sources()]})
 
+    res = cuda_build.resources(cuda_build.BUILD_LOG)
+    emit({"phase": "poseidon_build", "kernels": {
+        k: v for k, v in sorted(res.items()) if k.startswith("pg_")}})
+
     # ----------------------------------------------------------------- kernels
     checks = []
     worst = {"permute": 0, "linear_hash": 0, "node_hash": 0, "ntt_short": 0,
@@ -290,23 +285,65 @@ def main() -> int:
     hold("permute", "(12,)", pc.permute(st[:, 5].clone()),
          pc.permute_plain(st[:, 5].clone()))
 
+    # K2: the edge words, two of them in [p, 2^64), in every column of the
+    # first rows, so that every chunk and the capacity carried between
+    # chunks see them
     H = 1 << 18
     for w in (5, 8, 9, 21, 64):
-        x = edge(rnd(H, w))
+        x = edge_rows(rnd(H, w))
         hold("linear_hash", f"({H}, {w})", pc.linear_hash(x),
              pc.linear_hash_plain(x))
-    x665 = edge(rnd(H, 665))
+    x665 = edge_rows(rnd(H, 665))
     lh665 = pc.linear_hash(x665)
     hold("linear_hash", f"({H}, 665), plain on the first 4096 rows",
          lh665[:4096], pc.linear_hash_plain(x665[:4096]))
     ms_lh665 = time_ms(lambda: pc.linear_hash(x665), 5)
     del lh665
-    for n in (1, 3, 1 << 17):
-        l, r = edge(rnd(n, 4)), rnd(n, 4)
-        hold("node_hash", f"n = {n}", pc.node_hash(l, r), pc.node_hash_plain(l, r))
+    # K3: every boundary of the dispatch, through the wrapper and through
+    # each one-level kernel, edge words in every lane of both operands
+    bounds = sorted({1, 2, 3, 1 << 17} | {
+        t + d for t in (pc.TOP_MAX_PAIRS, pc.GROUP_MAX_PAIRS) for d in (-1, 0, 1)})
+    for n in bounds:
+        l = edge_lanes(rnd(4, n)).T.contiguous()
+        r = edge_lanes(rnd(4, n)).flip(1).T.contiguous()
+        want = pc.node_hash_plain(l, r)
+        hold("node_hash", f"n = {n} ({pc._node_kernel(n)})", pc.node_hash(l, r), want)
+        for kind in ("pair", "group"):
+            out = torch.empty_like(want)
+            pc._launch_node_hash(kind, l.data_ptr(), r.data_ptr(), 4,
+                                 out.data_ptr(), n, dev)
+            hold("node_hash", f"n = {n}, {kind} kernel", out, want)
+
+    def plain_levels_(forest: list) -> list:
+        """The levels of every (2h-1, 4) node array in `forest` by the plain
+        pair hash, on the card: one plain call per level depth for all the
+        trees together."""
+        offs, ns = [0] * len(forest), [(t.shape[0] + 1) // 2 for t in forest]
+        while max(ns) > 1:
+            live = [i for i, n in enumerate(ns) if n > 1]
+            lvls = [forest[i][offs[i]:offs[i] + ns[i]] for i in live]
+            out = pc.node_hash_plain(torch.cat([v[0::2] for v in lvls]),
+                                     torch.cat([v[1::2] for v in lvls]))
+            for i, part in zip(live, out.split([ns[i] // 2 for i in live])):
+                forest[i][offs[i] + ns[i]:offs[i] + ns[i] + ns[i] // 2] = part
+                offs[i] += ns[i]
+                ns[i] //= 2
+        return forest
+
+    forest = []
+    for k in range(1, 19):
+        h = 1 << k
+        nodes = torch.zeros((2 * h - 1, 4), dtype=torch.int64, device=dev)
+        nodes[:h] = edge_lanes(rnd(4, h)).T
+        forest.append(nodes)
+    got = [pc.merkle_levels_(t.clone(), (t.shape[0] + 1) // 2) for t in forest]
+    for k, g, want in zip(range(1, 19), got, plain_levels_(forest)):
+        hold("node_hash", f"merkle levels, h = 2^{k}, edge words in every lane "
+             f"({len(pc._level_plan(1 << k))} launches)", g, want)
+    del forest, got
     src = rnd(1 << 10, 9)
-    hold("node_hash", "merkelize (1024, 9): every level in place",
-         pc.merkelize(src), pc.merkelize(src.cpu()).to(dev))
+    hold("node_hash", "merkelize (1024, 9)", pc.merkelize(src),
+         pc.merkelize(src.cpu()).to(dev))
 
     def tw(log_l, inverse):
         return ntt_cuda._dev(dev, ntt_cuda._stage_tables_np, log_l, inverse)
@@ -373,9 +410,8 @@ def main() -> int:
          ntt.extend_pol_plain(x, 18, 19))
     emit({"phase": "kernels_check", "mismatches": 0, "cases": checks,
           "linear_hash_2^18x665_ms": ms_lh665,
-          "linear_hash_2^18x665_bound_ms": bound_ms(
-              H * (665 + 4) * 8, H * -(-665 // 8) * PERM_MUL64,
-              H * -(-665 // 8) * PERM_IMAD32)[0]})
+          "linear_hash_2^18x665_bound_ms": call_bound_ms(
+              "linear_hash", {"rows": x665})[0]})
     del x665, x, f, i_, e, st
     torch.cuda.empty_cache()
 
@@ -494,6 +530,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_prove = time.time() - t0
     launches = read_counters()
+    node_variants = dict(pc.NODE_HASH_LAUNCHES)
     restore()
     peak = torch.cuda.max_memory_allocated()
     for k in ("linear_hash", "node_hash", "ntt_short", "ntt_block"):
@@ -502,7 +539,11 @@ def main() -> int:
         if len(log[k]) != launches[k]:
             raise AssertionError(f"{k}: {len(log[k])} of {launches[k]} "
                                  "launches logged")
-    node_sizes = [a["n"] for _, a in log["node_hash"]]
+    tree_heights = [a["h"] for _, a in log["merkle"]]
+    if sum(len(pc._level_plan(h)) for h in tree_heights) != launches["node_hash"]:
+        raise AssertionError("node_hash launches outside the proof's trees")
+    node_launches = [("top", a["n"]) if "kind" not in a else (a["kind"], a["n"])
+                     for _, a in log["node_hash"]]
     proof_times = {k: per_proof(log[k], k)
                    for k in ("linear_hash", "ntt_short", "ntt_block")}
     del log
@@ -522,7 +563,9 @@ def main() -> int:
           "n_queries": info.n_queries, "section_widths": info.section_widths,
           "setup_s": t_setup, "prove_s": t_prove, "verify_s": t_verify,
           "spans_s": tlog.as_dict(), "peak_memory_bytes": peak,
-          "launches": launches, "verified": True, "tampered_rejected": True})
+          "launches": launches, "node_hash_launches_per_variant": node_variants,
+          "tree_heights": tree_heights, "verified": True,
+          "tampered_rejected": True})
 
     # ---------------------------------------- times at the paths' shapes
     # Each entry: one launch at the largest shape its path gives it, and, for
@@ -553,54 +596,66 @@ def main() -> int:
           time_ms(lambda: pc.permute(perm_state), 7),
           time_ms(lambda: pc.permute_plain(perm_state), 2),
           perm_bound_ms(B_PERM, 2 * 12 * B_PERM * 8),
-          path="ops.poseidon_gl.permute",
-          bound_ms_sboxes_only=bound_ms(2 * 12 * B_PERM * 8,
-                                        B_PERM * PERM_SBOX_MUL64)[0])
+          path="ops.poseidon_gl.permute")
     del perm_state
 
     x = rnd(n_ext, wmax)
     hold("linear_hash", f"main path ({n_ext}, {wmax})", pc.linear_hash(x),
          pc.linear_hash_plain(x))
-    nchunks = -(-wmax // 8)
     entry("linear_hash", "poseidon_tpu.py:326", [n_ext, wmax],
           launches["linear_hash"], time_ms(lambda: pc.linear_hash(x), 7),
           time_ms(lambda: pc.linear_hash_plain(x), 2),
           call_bound_ms("linear_hash", {"rows": x}),
-          bound_ms_sboxes_only=bound_ms(n_ext * (wmax + 4) * 8,
-                                        n_ext * nchunks * PERM_SBOX_MUL64)[0],
           **per_proof_keys(proof_times["linear_hash"]))
 
-    # K3: the largest tree level, and each level size of the proof, launched
-    # in place at stride 8 as the tree builds it, on a busy card (the
-    # kernel's time) and on an idle one (with the host's cost of the launch)
+    # K3: the largest tree level (the pair kernel); per proof, every tree the
+    # proof builds, filled again through the dispatch (merkle_levels_) on a
+    # busy card (the kernels' time) and on an idle one (with the host's cost
+    # of each launch); per level, each of the proof's launches at its size
     npairs = n_ext // 2
     l, r = rnd(npairs, 4), rnd(npairs, 4)
     hold("node_hash", f"main path ({npairs}, 4)", pc.node_hash(l, r),
          pc.node_hash_plain(l, r))
+    trees = {}
+    for h in sorted(set(tree_heights)):
+        nodes = rnd(2 * h - 1, 4)
+        trees[h] = (time_ms(lambda: pc.merkle_levels_(nodes, h), 5),
+                    time_ms(lambda: pc.merkle_levels_(nodes, h), 5, prefill=False))
     lvl = rnd(2 * npairs, 4)
     lvl_out = torch.empty((npairs, 4), dtype=torch.int64, device=dev)
     per_level, per_level_idle = {}, {}
-    for n in sorted(set(node_sizes)):
-        def level():
-            pc._launch_node_hash(lvl.data_ptr(), lvl.data_ptr() + 32, 8,
-                                 lvl_out.data_ptr(), n, dev)
-        per_level[n] = time_ms(level, 7)
-        per_level_idle[n] = time_ms(level, 7, prefill=False)
+    for kind, n in sorted(set(node_launches)):
+        if kind == "top":
+            def level():
+                pc._launch_merkle_top(lvl.data_ptr(), n, dev)
+        else:
+            def level():
+                pc._launch_node_hash(kind, lvl.data_ptr(), lvl.data_ptr() + 32, 8,
+                                     lvl_out.data_ptr(), n, dev)
+        key = f"{kind} {n}" if kind != "top" else f"top from {n} digests"
+        per_level[key] = time_ms(level, 7)
+        per_level_idle[key] = time_ms(level, 7, prefill=False)
+
+    def tree_bound(h):
+        return sum(perm_bound_ms(h >> k, (h >> k) * 12 * 8)[0]
+                   for k in range(1, h.bit_length()))
     entry("node_hash", "poseidon_tpu.py:350", [npairs, 4], launches["node_hash"],
           time_ms(lambda: pc.node_hash(l, r), 7),
           time_ms(lambda: pc.node_hash_plain(l, r), 2),
           perm_bound_ms(npairs, npairs * 12 * 8),
-          bound_ms_sboxes_only=bound_ms(npairs * 12 * 8,
-                                        npairs * PERM_SBOX_MUL64)[0],
-          per_proof_ms=sum(per_level[n] for n in node_sizes),
-          per_proof_bound_ms=sum(perm_bound_ms(n, n * 12 * 8)[0]
-                                 for n in node_sizes),
-          per_proof_idle_card_ms=sum(per_level_idle[n] for n in node_sizes),
-          per_level_ms={str(n): per_level[n] for n in sorted(per_level)},
-          per_level_idle_card_ms={str(n): per_level_idle[n]
-                                  for n in sorted(per_level)},
-          launches_per_level={str(n): node_sizes.count(n)
-                              for n in sorted(per_level)})
+          per_proof_ms=sum(trees[h][0] for h in tree_heights),
+          per_proof_bound_ms=sum(tree_bound(h) for h in tree_heights),
+          per_proof_idle_card_ms=sum(trees[h][1] for h in tree_heights),
+          per_tree_ms={str(h): trees[h][0] for h in sorted(trees)},
+          per_tree_idle_card_ms={str(h): trees[h][1] for h in sorted(trees)},
+          trees_per_height={str(h): tree_heights.count(h) for h in sorted(trees)},
+          per_level_ms=per_level, per_level_idle_card_ms=per_level_idle,
+          launches_per_level={
+              (f"{k} {n}" if k != "top" else f"top from {n} digests"):
+              node_launches.count((k, n)) for k, n in sorted(set(node_launches))},
+          launches_per_variant=node_variants,
+          thresholds={"GROUP_MAX_PAIRS": pc.GROUP_MAX_PAIRS,
+                      "TOP_MAX_PAIRS": pc.TOP_MAX_PAIRS})
     del l, r, lvl, lvl_out
 
     # K4: FRI's first fold, INTT of length 4 over (4, pol2N * 3)

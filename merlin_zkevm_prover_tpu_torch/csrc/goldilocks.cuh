@@ -1,9 +1,13 @@
 // Goldilocks field (p = 2^64 - 2^32 + 1) device arithmetic on uint64_t.
 //
 // Range discipline: every function states the range of its inputs and of its
-// result.  "canonical" means [0, p).  All arithmetic results are canonical:
-// nothing lazy is carried between functions, so the add/sub carry chains
-// (exact only below p) never see a residue in [p, 2^64).
+// result.  "canonical" means [0, p); "lazy" means any word in [0, 2^64),
+// congruent mod p to the value it stands for.  gl_add, gl_sub, gl_mul,
+// gl_sqr and gl_pow7 return canonical results, so the add/sub carry chains
+// (exact only below p) never see a residue in [p, 2^64).  The *_lazy
+// helpers at the end return lazy words; they feed only functions whose
+// stated input range is any word (gl_mul, the *_lazy helpers themselves,
+// gl_canon), never gl_add or gl_sub.
 #pragma once
 #include <stdint.h>
 
@@ -66,4 +70,64 @@ __device__ __forceinline__ uint64_t gl_pow7(uint64_t a) {
     uint64_t a3 = gl_mul(a2, a);
     uint64_t a4 = gl_sqr(a2);
     return gl_mul(a3, a4);
+}
+
+// ---------------------------------------------------------------------------
+// Lazy helpers (the Poseidon body keeps words lazy between rounds and
+// canonicalises once at the end).
+// ---------------------------------------------------------------------------
+
+// in: (lo, hi) any 128-bit value.  out: lazy.
+// gl_reduce128 without its final gl_canon; its comments prove that t0 and s
+// neither borrow nor carry twice, so s is a word congruent to lo + 2^64 hi.
+__device__ __forceinline__ uint64_t gl_reduce128_lazy(uint64_t lo, uint64_t hi) {
+    uint64_t hi_hi = hi >> 32;
+    uint64_t hi_lo = hi & 0xFFFFFFFFULL;
+    uint64_t t0 = lo - hi_hi;
+    if (lo < hi_hi) t0 -= GL_EPS;
+    uint64_t t1 = (hi_lo << 32) - hi_lo;
+    uint64_t s = t0 + t1;
+    if (s < t0) s += GL_EPS;
+    return s;
+}
+
+// in: lo any word, hi < 2^32.  out: lazy, congruent to lo + 2^64 hi.
+// gl_reduce128_lazy with hi_hi = 0: t1 = hi * EPS <= (2^32-1)^2 =
+// 2^64 - 2^33 + 1; on carry the wrapped sum is < t1, so adding EPS cannot
+// carry again.
+__device__ __forceinline__ uint64_t gl_reduce96_lazy(uint64_t lo, uint32_t hi) {
+    uint64_t t1 = ((uint64_t)hi << 32) - hi;
+    uint64_t s = lo + t1;
+    if (s < t1) s += GL_EPS;
+    return s;
+}
+
+// in: a any word, c canonical.  out: lazy, congruent to a + c.
+// On carry the wrapped sum is a + c - 2^64 <= c - 1 < p - 1, and
+// p - 1 + EPS = 2^64 - 1, so adding EPS cannot carry again.
+__device__ __forceinline__ uint64_t gl_add_lazy(uint64_t a, uint64_t c) {
+    uint64_t s = a + c;
+    if (s < c) s += GL_EPS;
+    return s;
+}
+
+// in: a, b any words.  out: lazy a * b.  (A 128-bit product from one chain
+// of 32 x 32 -> 64 bit partial products, three for a square, compiles to
+// more SASS instructions than a * b with __umul64hi and runs slower on the
+// card: tools/sass_count.py, PERF.md.)
+__device__ __forceinline__ uint64_t gl_mul_lazy(uint64_t a, uint64_t b) {
+    return gl_reduce128_lazy(a * b, __umul64hi(a, b));
+}
+
+// in: a any word.  out: lazy a^2.
+__device__ __forceinline__ uint64_t gl_sqr_lazy(uint64_t a) {
+    return gl_mul_lazy(a, a);
+}
+
+// in: a any word.  out: lazy a^7 = a^3 * a^4.
+__device__ __forceinline__ uint64_t gl_pow7_lazy(uint64_t a) {
+    uint64_t a2 = gl_sqr_lazy(a);
+    uint64_t a3 = gl_mul_lazy(a2, a);
+    uint64_t a4 = gl_sqr_lazy(a2);
+    return gl_mul_lazy(a3, a4);
 }

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -58,9 +59,11 @@ def build() -> Path:
     """Compile every source in parallel and link; returns the library path."""
     global BUILD_SECONDS, BUILD_LOG
     out = BUILD_DIR / f"libmerlin_kernels_{_digest()}.so"
+    log = out.with_suffix(".log")
     if out.exists():
         if BUILD_SECONDS is None:
             BUILD_SECONDS = 0.0
+            BUILD_LOG = log.read_text() if log.exists() else ""
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -89,6 +92,7 @@ def build() -> Path:
     BUILD_LOG += "\n$ " + " ".join(cmd) + "\n" + r.stdout
     if r.returncode != 0:
         raise RuntimeError("kernel link failed:\n" + BUILD_LOG)
+    log.write_text(BUILD_LOG)
     os.replace(tmp, out)
     for obj in objs:
         obj.unlink(missing_ok=True)
@@ -103,7 +107,7 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             cdll = ctypes.CDLL(str(build()))
             vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            cdll.merlin_poseidon_set_constants.argtypes = [vp, vp, ctypes.c_uint32]
+            cdll.merlin_poseidon_set_constants.argtypes = [vp]
             cdll.merlin_poseidon_set_constants.restype = ci
             cdll.merlin_permute.argtypes = [vp, vp, ll, vp]
             cdll.merlin_permute.restype = ci
@@ -111,12 +115,46 @@ def lib() -> ctypes.CDLL:
             cdll.merlin_linear_hash.restype = ci
             cdll.merlin_node_hash.argtypes = [vp, vp, ll, vp, ll, vp]
             cdll.merlin_node_hash.restype = ci
+            cdll.merlin_node_hash_group.argtypes = [vp, vp, ll, vp, ll, vp]
+            cdll.merlin_node_hash_group.restype = ci
+            cdll.merlin_merkle_top.argtypes = [vp, ll, vp]
+            cdll.merlin_merkle_top.restype = ci
             cdll.merlin_ntt_block.argtypes = [vp, vp, vp, vp, vp,
                                               ctypes.c_ulonglong, ci, ci, ll,
                                               ci, ci, vp]
             cdll.merlin_ntt_block.restype = ci
             _lib = cdll
         return _lib
+
+
+def demangle(name: str) -> str:
+    """The plain name of a mangled C++ function name (_Z<len><name>...)."""
+    m = re.match(r"_Z(\d+)", name)
+    return name[m.end():m.end() + int(m.group(1))] if m else name
+
+
+def resources(build_log: str) -> dict:
+    """Registers and spills of every kernel, from ptxas's ``-v`` lines in a
+    build log: {plain name: {"registers", "stack_bytes",
+    "spill_store_bytes", "spill_load_bytes"}}."""
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(demangle(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def check(code: int, what: str) -> None:

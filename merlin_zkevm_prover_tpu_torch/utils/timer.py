@@ -35,3 +35,33 @@ class TimerLog:
         for k, v in self.spans:
             out[k] = out.get(k, 0.0) + v
         return out
+
+
+# ~0.5 ms of GPU spin ahead of a timed call: the host enqueues the call's
+# launches (tens of microseconds of python and ctypes each) while the card is
+# still busy, so the events time the card's work and not the host's.
+PREFILL_CYCLES = 1_000_000
+
+
+def device_time_ms(fn, runs: int, prefill: bool = True) -> float:
+    """Median over `runs` single calls of `fn`, CUDA events, after one
+    warm-up.  With `prefill` off the card is idle when the call starts, so
+    the time includes the host's cost of issuing it.  Needs a CUDA card."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        if prefill:
+            torch.cuda._sleep(PREFILL_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
