@@ -17,8 +17,14 @@ and the exit code is non-zero unless every phase passed):
            each threshold -1, at, +1, through the wrapper and through each
            of its one-level kernels); Merkle levels of trees of 2^1 .. 2^18
            leaves, edge words in every lane, against the plain levels on
-           the card; the block NTT at L = 2, 4, 8, 16, 256 and 512 with each
-           flag set
+           the card; the block NTT at every L from 2 to 512 with each flag
+           combination, edge words (p and 2^64 - 1 among them) across the
+           first rows, a one-hot column, and on a column slice; the
+           pipeline's kernel A reading a column slice in place and kernel B
+           reading through the mid gather (into a column slice) at n_bits
+           10 to 18 and c = 1, 3, 25, 64; blocked LDEs of 67 to 131 columns;
+           the one-hot, impulse and Lagrange probes through ntt / intt /
+           extend_pol
   permute  K1's path: the batched permutation entry point
            (``ops.poseidon_gl.permute``) on a (12, 270600) state, the
            PoseidonG state machine's capacity at 2^23 rows; columns checked
@@ -27,10 +33,14 @@ and the exit code is non-zero unless every phase passed):
            field by field, the proofs the JAX prover wrote (tests/data/); the
            n_bits 11 proof is K6's path (its LDE runs block lengths 4 and 8)
   commit   coset LDE + Poseidon Merkle tree of a seeded 2^17 x 665 matrix (the
-           zkEVM's cm1 width), checked against the plain LDE and python-int
-           openings
+           zkEVM's cm1 width), every 64-column block checked against the
+           plain LDE, python-int openings; then one LDE block under
+           torch.profiler, which must run the four block kernels and no other
+           device kernel (the ``lde_block_split`` line: each kernel's device
+           time and the block's, the difference being what runs between them)
   prove    the main path: one STARK proof of the smoke circuit at n_bits 17
-           through the kernels, verified
+           through the kernels, verified; every transform of it takes kernel
+           B's fused gather (the plain ``_mid_gather`` never runs on the card)
 
 Each path (permute, each golden proof, prove) is driven with every launch
 counter set to 0 just before it and read just after.
@@ -98,6 +108,26 @@ def call_bound_ms(kernel: str, a: dict):
     if kernel == "linear_hash":
         h, w = a["rows"].shape
         return perm_bound_ms(h * -(-w // 8), h * (w + 4) * 8)
+    if "y" in a:
+        # kernel B with the mid gather in its load: kernel A's output in,
+        # the (L, n1) gather table, the product by it, then the block
+        y, n1, log_l = a["y"], 1 << a["n1_bits"], a["n2_bits"]
+        l, b = 1 << log_l, y.shape[1]
+        n_bytes = 2 * y.numel() * 8 + (l * n1 + l - 1) * 8
+        mul64 = (l // 2) * (log_l - 1) * b + l * b
+        for scale in ("u", "v", "const_scale"):
+            if a[scale] is not None:
+                mul64 += l * b
+        n_bytes += (l * 8 if a["u"] is not None else 0) + (
+            n1 * 8 if a["v"] is not None else 0)
+        return bound_ms(n_bytes, mul64)
+    if "n1_bits" in a:
+        # kernel A: the (L or L/2, n2 * c) view of an (N, c) matrix
+        x, log_l = a["x"], a["n1_bits"]
+        l = 1 << log_l
+        b = x.numel() // (l // 2 if a["zero_top"] else l)
+        return bound_ms(x.numel() * 8 + l * b * 8 + (l - 1) * 8,
+                        (l // 2) * (log_l - 1) * b)
     x, log_l = a["x"], a["log_l"]
     l, b = 1 << log_l, x.shape[1]
     n_bytes = (x.shape[0] + l) * b * 8 + (l - 1) * 8
@@ -153,14 +183,6 @@ def main() -> int:
         return torch.randint(0, 1 << 62, shape, generator=gen, device=dev,
                              dtype=torch.int64)
 
-    def edge(t: torch.Tensor) -> torch.Tensor:
-        """Plant the edge operands at the front of a tensor."""
-        vals = [0, 1, (1 << 32) - 1, 1 << 32, P - (1 << 32), P - 1]
-        flat = t.reshape(-1)
-        k = min(len(vals), flat.numel())
-        flat[:k] = gl.from_u64(np.array(vals[:k], dtype=np.uint64), dev)
-        return t
-
     # the edge operands and two words in [p, 2^64), which are read modulo p
     lane_vals = np.array([0, 1, (1 << 32) - 1, 1 << 32, P - (1 << 32), P - 1,
                           P, (1 << 64) - 1], dtype=np.uint64)
@@ -181,12 +203,13 @@ def main() -> int:
         return x
 
     def zero_counters() -> None:
-        for counters in (pc.LAUNCHES, pc.NODE_HASH_LAUNCHES, ntt_cuda.LAUNCHES):
+        for counters in (pc.LAUNCHES, pc.NODE_HASH_LAUNCHES, ntt_cuda.LAUNCHES,
+                         ntt_cuda.SUB_LAUNCHES):
             for k in counters:
                 counters[k] = 0
 
     def read_counters() -> dict:
-        return {**pc.LAUNCHES, **ntt_cuda.LAUNCHES}
+        return {**pc.LAUNCHES, **ntt_cuda.LAUNCHES, **ntt_cuda.SUB_LAUNCHES}
 
     def log_launches():
         """Log every launching call of the wrappers a proof runs, with its
@@ -197,7 +220,8 @@ def main() -> int:
         by its pair count.  Returns the log and a function that puts the
         wrappers back."""
         log = {k: [] for k in ("linear_hash", "node_hash", "ntt_short",
-                               "ntt_block", "ntt_block_short", "merkle")}
+                               "ntt_block", "ntt_block_short", "merkle",
+                               "mid_gather")}
         saved = []
 
         def wrap(mod, name, kernel_of):
@@ -211,7 +235,8 @@ def main() -> int:
                 kernel = kernel_of(call.arguments)
                 if kernel is not None:
                     log[kernel].append((orig, {
-                        k: tuple(v.shape) if k in ("rows", "x", "nodes") else v
+                        k: tuple(v.shape) if k in ("rows", "x", "y", "nodes")
+                        else None if k == "out" else v
                         for k, v in call.arguments.items()}))
                 return orig(*args, **kw)
             setattr(mod, name, logged)
@@ -220,9 +245,17 @@ def main() -> int:
             a["rows"].shape[0], a["rows"].shape[1] - CAPACITY) > 0 else None)
         wrap(ntt_cuda, "ntt_short",
              lambda a: "ntt_short" if a["x"].shape[1] else None)
-        wrap(ntt_cuda, "ntt_block", lambda a: None if not a["x"].shape[1] else (
-            "ntt_block_short" if a["log_l"] <= ntt_cuda.SHORT_BLOCK_BITS
-            else "ntt_block"))
+        def block_kind(x, log_l):
+            return None if not x.shape[1] else (
+                "ntt_block_short" if log_l <= ntt_cuda.SHORT_BLOCK_BITS
+                else "ntt_block")
+        wrap(ntt_cuda, "ntt_block", lambda a: block_kind(a["x"], a["log_l"]))
+        wrap(ntt_cuda, "ntt_block_cols",
+             lambda a: block_kind(a["x"], a["n1_bits"]))
+        wrap(ntt_cuda, "ntt_block_gather",
+             lambda a: block_kind(a["y"], a["n2_bits"]))
+        wrap(ntt_cuda, "_mid_gather",          # the plain gather: CPU only
+             lambda a: "mid_gather" if a["y"].is_cuda else None)
         wrap(pc, "_launch_node_hash", lambda a: "node_hash")
         wrap(pc, "_launch_merkle_top", lambda a: "node_hash")
         wrap(pc, "merkle_levels_", lambda a: "merkle" if a["nodes"].is_cuda
@@ -238,7 +271,8 @@ def main() -> int:
         kernel, each timed again at its shape on seeded data, summed."""
         ms = bound = 0.0
         for orig, a in calls:
-            a = {k: rnd(*v) if k in ("rows", "x") else v for k, v in a.items()}
+            a = {k: rnd(*v) if k in ("rows", "x", "y") else v
+                 for k, v in a.items()}
             ms += time_ms(lambda: orig(**a), 3)
             bound += call_bound_ms(kernel, a)[0]
         return ms, bound
@@ -263,6 +297,8 @@ def main() -> int:
     res = cuda_build.resources(cuda_build.BUILD_LOG)
     emit({"phase": "poseidon_build", "kernels": {
         k: v for k, v in sorted(res.items()) if k.startswith("pg_")}})
+    emit({"phase": "ntt_build", "kernels": {
+        k: v for k, v in sorted(res.items()) if k.startswith("ntt_")}})
 
     # ----------------------------------------------------------------- kernels
     checks = []
@@ -348,31 +384,92 @@ def main() -> int:
     def tw(log_l, inverse):
         return ntt_cuda._dev(dev, ntt_cuda._stage_tables_np, log_l, inverse)
 
-    for log_l in (1, 2, 3, 4, 8, 9):  # 2, 4 and 8: the lengths below 16
-        l, b = 1 << log_l, 1000      # b: not a multiple of the tile width
-        x = edge(rnd(l, b))
+    def ntt_kind(log_l):
+        return ("ntt_block_short" if log_l <= ntt_cuda.SHORT_BLOCK_BITS
+                else "ntt_block")
+
+    # the block transform at every length 2 .. 512 (2, 4 and 8: K6's
+    # register form; 16: one thread per column; 32 .. 512: register passes
+    # over the tile), each flag combination, the edge words (p and 2^64 - 1
+    # among them) across the first rows and a one-hot column
+    for log_l in range(1, ntt_cuda.MAX_KERNEL_BITS + 1):
+        l, b = 1 << log_l, 1000      # b: not a multiple of any tile width
+        x = edge_rows(rnd(l, b))
         x[:, 1] = 0
         x[1 % l, 1] = 1              # one-hot column
         u, v = rnd(l), rnd(b)
         for name, kw in (
                 ("dif, inverse", dict(dif=True, inverse=True)),
                 ("dif, zero_top", dict(dif=True, zero_top=True)),
+                ("dif, u v const_scale", dict(dif=True, u=u, v=v,
+                                              const_scale=3, inverse=True)),
                 ("dit, sep_scale", dict(dif=False, u=u, v=v, inverse=True)),
                 ("dit, const_scale", dict(dif=False, const_scale=pow(l, P - 2, P),
                                           inverse=True)),
+                ("dit, zero_top", dict(dif=False, zero_top=True)),
                 ("dit, canon", dict(dif=False))):
             kw = dict(kw)
             t = tw(log_l, kw.pop("inverse", False))
             xin = x[: l // 2] if kw.get("zero_top") else x
-            hold("ntt_block_short" if log_l <= ntt_cuda.SHORT_BLOCK_BITS
-                 else "ntt_block", f"L = {l}, {name}",
+            hold(ntt_kind(log_l), f"L = {l}, {name}",
                  ntt_cuda.ntt_block(xin, t, log_l, **kw),
                  ntt_cuda.ntt_block_plain(xin, t, log_l, **kw))
+        xs = x[:, 3:997]             # a column slice, read in place
+        hold(ntt_kind(log_l), f"L = {l}, dif, column slice",
+             ntt_cuda.ntt_block(xs, tw(log_l, False), log_l, True),
+             ntt_cuda.ntt_block_plain(xs, tw(log_l, False), log_l, True))
     for log_l, b in ((2, (1 << 16) * 3), (5, 1000)):
-        x = edge(rnd(1 << log_l, b))
+        x = edge_rows(rnd(1 << log_l, b))
         hold("ntt_short", f"L = {1 << log_l}, B = {b}",
              ntt_cuda.ntt_short(x, tw(log_l, True), log_l),
              ntt_cuda.ntt_short_plain(x, tw(log_l, True), log_l))
+
+    # the pipeline's kernels at every size it serves, at the widths the
+    # proof gives them (1 and 3: the GL3 transforms; 25: the commit's last
+    # block; 64: a full block): kernel A reading a column slice in place
+    # (with and without zero_top), kernel B reading kernel A's output
+    # through the mid gather, with the INTT's u[k2] v[k1] scale, and
+    # writing into a column slice with a constant scale
+    for nb in range(ntt_cuda.PIPELINE_MIN_BITS, ntt_cuda.PIPELINE_MAX_BITS + 1):
+        n1_bits, n2_bits = ntt_cuda._split(nb)
+        key = (nb, n1_bits, SHIFT, True)
+        su = ntt_cuda._dev(dev, ntt_cuda._sep_scale_np, *key, pick=0)
+        sv = ntt_cuda._dev(dev, ntt_cuda._sep_scale_np, *key, pick=1)
+        for c in (1, 3, 25, 64):
+            wide = edge_rows(rnd(1 << nb, c + 7))
+            xa = wide[:, 3:3 + c]
+            for zt in (False, True):
+                xin = xa[: (1 << nb) // 2] if zt else xa
+                hold(ntt_kind(n1_bits), f"kernel A n_bits = {nb}, c = {c}, "
+                     f"column slice{', zero_top' if zt else ''}",
+                     ntt_cuda.ntt_block_cols(xin, n1_bits, n2_bits, not zt, zt),
+                     ntt_cuda.ntt_block_cols_plain(xin, n1_bits, n2_bits,
+                                                   not zt, zt))
+            y = edge_rows(rnd(1 << n1_bits, c << n2_bits))
+            y[:, 1] = 0
+            y[0, 1] = 1              # one-hot column of kernel A's output
+            hold("ntt_block", f"gather B n_bits = {nb}, c = {c}, inverse, u v",
+                 ntt_cuda.ntt_block_gather(y, n1_bits, n2_bits, c, True,
+                                           u=su, v=sv),
+                 ntt_cuda.ntt_block_gather_plain(y, n1_bits, n2_bits, c, True,
+                                                 u=su, v=sv))
+            wide.zero_()
+            got = ntt_cuda.ntt_block_gather(y, n1_bits, n2_bits, c, False,
+                                            const_scale=12345,
+                                            out=wide[:, 3:3 + c])
+            hold("ntt_block", f"gather B n_bits = {nb}, c = {c}, into a "
+                 "column slice", got, ntt_cuda.ntt_block_gather_plain(
+                     y, n1_bits, n2_bits, c, False, const_scale=12345))
+            if bool(wide[:, :3].any()) or bool(wide[:, 3 + c:].any()):
+                raise AssertionError(f"gather B n_bits = {nb}, c = {c} wrote "
+                                     "outside its column slice")
+    del wide, xa, y, got
+    for nb, w in ((10, 67), (12, 130), (14, 131)):
+        x = edge_rows(rnd(1 << nb, w))
+        hold(ntt_kind(ntt_cuda._split(nb + 1)[0]),
+             f"extend_pol_blocked ({1 << nb}, {w}) -> 2^{nb + 1}",
+             ntt.extend_pol_blocked(x, nb, nb + 1),
+             ntt.extend_pol_plain(x, nb, nb + 1))
 
     def lagrange0(n, xx):
         return (pow(xx, n, P) - 1) * pow(n * (xx - 1) % P, P - 2, P) % P
@@ -477,6 +574,47 @@ def main() -> int:
         del log
     emit({"phase": "golden", "proofs": golden_out})
 
+    def lde_block_split(blk: torch.Tensor, nb: int) -> dict:
+        """One 64-column block of the LDE, read from and written into wide
+        matrices as extend_pol_blocked does: every device kernel it runs
+        (torch.profiler), which must be the four block kernels and nothing
+        else, and its device time (CUDA events, the card kept busy ahead of
+        it) beside theirs."""
+        from torch.profiler import ProfilerActivity, profile
+
+        out = torch.empty((1 << (nb + 1), blk.shape[1] + 3), dtype=torch.int64,
+                          device=dev)[:, 1:1 + blk.shape[1]]
+
+        def one_block():
+            ntt_cuda.extend_pol_device(blk, nb, nb + 1, out=out)
+        one_block()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one_block()
+            torch.cuda.synchronize()
+        kernels = []
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            kernels.append({"name": ev.key, "count": ev.count,
+                            "device_ms": us / 1e3})
+        n_kernels = sum(k["count"] for k in kernels)
+        foreign = [k["name"] for k in kernels
+                   if not k["name"].startswith(("void ntt_tile_kernel",
+                                                "void ntt_reg_kernel"))]
+        if n_kernels != 4 or foreign:
+            raise AssertionError(f"one LDE block ran {n_kernels} device "
+                                 f"kernels, not the four block kernels: "
+                                 f"{kernels}")
+        kernels_ms = sum(k["device_ms"] for k in kernels)
+        block_ms = time_ms(one_block, 7)
+        return {"shape": [1 << nb, blk.shape[1]], "kernels": kernels,
+                "device_kernels": n_kernels, "kernels_ms": kernels_ms,
+                "block_ms": block_ms, "between_kernels_ms": block_ms - kernels_ms}
+
     # ------------------------------------------------------------------ commit
     NB, W = 17, 665
     before = dict(pc.LAUNCHES), dict(ntt_cuda.LAUNCHES)
@@ -492,16 +630,20 @@ def main() -> int:
     tree.merkelize()
     torch.cuda.synchronize()
     t_merkle = time.time() - t0
-    blk = slice(128, 192)
-    if max_abs_err(lde[:, blk],
-                   ntt.extend_pol_plain(mat[:, blk].contiguous(), NB, NB + 1)):
-        raise AssertionError("commit: LDE block differs from the plain version")
+    # every block of the LDE (each read from and written into its columns
+    # of the wide matrices in place) against the plain whole-length LDE
+    for i in range(0, W, ntt.EXTEND_BLOCK_COLS):
+        blk = slice(i, min(W, i + ntt.EXTEND_BLOCK_COLS))
+        hold("ntt_block", f"commit LDE ({1 << NB}, {W}), columns "
+             f"{blk.start}..{blk.stop - 1}", lde[:, blk],
+             ntt.extend_pol_plain(mat[:, blk].contiguous(), NB, NB + 1))
     root = tree.root()
     idxs = [int(i) for i in rng.integers(0, 1 << (NB + 1), 16)]
     for (row, sib), idx in zip(tree.get_group_proofs(idxs), idxs):
         if not MerkleTreeGL.verify_proof(root, idx, row, sib):
             raise AssertionError(f"commit: opening {idx} does not verify")
     felts = (1 << NB) * W
+    block_split = lde_block_split(mat[:, 64:128], NB)
     emit({"phase": "commit", "shape": [1 << NB, W], "lde_ms": t_lde * 1e3,
           "merkle_ms": t_merkle * 1e3,
           "felts_per_s": felts / (t_lde + t_merkle),
@@ -509,6 +651,7 @@ def main() -> int:
           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
           "launches": {k: pc.LAUNCHES[k] - before[0][k] for k in pc.LAUNCHES}
           | {k: ntt_cuda.LAUNCHES[k] - before[1][k] for k in ntt_cuda.LAUNCHES}})
+    emit({"phase": "lde_block_split", **block_split})
     del mat, lde, tree
     torch.cuda.empty_cache()
 
@@ -533,6 +676,9 @@ def main() -> int:
     node_variants = dict(pc.NODE_HASH_LAUNCHES)
     restore()
     peak = torch.cuda.max_memory_allocated()
+    if log["mid_gather"] or launches["ntt_block_gather"] <= 0:
+        raise AssertionError("the proof's transforms did not all take kernel "
+                             "B's fused gather")
     for k in ("linear_hash", "node_hash", "ntt_short", "ntt_block"):
         if launches[k] <= 0:
             raise AssertionError(f"main path never launched kernel {k}")
@@ -678,12 +824,34 @@ def main() -> int:
     hold("ntt_block", f"main path ({n2}, {b})",
          ntt_cuda.ntt_block(x, t, log_l, False),
          ntt_cuda.ntt_block_plain(x, t, log_l, False))
+    # the same block as the path runs it: kernel A of the forward LDE
+    # (zero_top, reading the coefficients) and kernel B with the mid gather
+    # in its load
+    nb1 = info.n_bits_ext - log_l
+    ya = rnd(n_ext // 2, wmax)
+    yb = rnd(1 << nb1, b)
+    fused = {}
+    for what, fn, plain_fn, args in (
+            ("kernel_a", ntt_cuda.ntt_block_cols, ntt_cuda.ntt_block_cols_plain,
+             dict(x=ya, n1_bits=nb1, n2_bits=log_l, inverse=False,
+                  zero_top=True)),
+            ("gather_b", ntt_cuda.ntt_block_gather,
+             ntt_cuda.ntt_block_gather_plain,
+             dict(y=yb, n1_bits=nb1, n2_bits=log_l, c=wmax, inverse=False,
+                  u=None, v=None, const_scale=None, out=None))):
+        hold("ntt_block", f"main path {what} ({1 << log_l}, {b})",
+             fn(**args), plain_fn(**args))
+        fused[what + "_ms"] = time_ms(lambda: fn(**args), 7)
+        fused[what + "_plain_ms"] = time_ms(lambda: plain_fn(**args), 2)
+        fused[what + "_bound_ms"] = call_bound_ms("ntt_block", args)[0]
     entry("ntt_block", "ntt_tpu.py:736", [n2, b], launches["ntt_block"],
           time_ms(lambda: ntt_cuda.ntt_block(x, t, log_l, False), 7),
           time_ms(lambda: ntt_cuda.ntt_block_plain(x, t, log_l, False), 2),
           call_bound_ms("ntt_block", dict(x=x, log_l=log_l, u=None, v=None,
                                           const_scale=None)),
-          **per_proof_keys(proof_times["ntt_block"]))
+          gather_b_launches=launches["ntt_block_gather"],
+          **fused, **per_proof_keys(proof_times["ntt_block"]))
+    del ya, yb
 
     # K6: kernel A of the n_bits 11 proof's widest LDE, n_bits 11 -> 12: the
     # INTT at L = 4 and the forward transform at L = 8 with zero_top

@@ -74,7 +74,8 @@ __device__ __forceinline__ uint64_t gl_pow7(uint64_t a) {
 
 // ---------------------------------------------------------------------------
 // Lazy helpers (the Poseidon body keeps words lazy between rounds and
-// canonicalises once at the end).
+// canonicalises once at the end; the NTT's decimation-in-time butterflies
+// keep the sums lazy and canonicalise on the way out).
 // ---------------------------------------------------------------------------
 
 // in: (lo, hi) any 128-bit value.  out: lazy.
@@ -109,6 +110,16 @@ __device__ __forceinline__ uint64_t gl_add_lazy(uint64_t a, uint64_t c) {
     uint64_t s = a + c;
     if (s < c) s += GL_EPS;
     return s;
+}
+
+// in: a any word, c canonical.  out: lazy, congruent to a - c.
+// On borrow the wrapped difference is a - c + 2^64 >= 2^64 - c > 2^64 - p
+// = EPS, and a - c + 2^64 - EPS is congruent to a - c, so subtracting EPS
+// cannot borrow again.
+__device__ __forceinline__ uint64_t gl_sub_lazy(uint64_t a, uint64_t c) {
+    uint64_t d = a - c;
+    if (a < c) d -= GL_EPS;
+    return d;
 }
 
 // in: a, b any words.  out: lazy a * b.  (A 128-bit product from one chain

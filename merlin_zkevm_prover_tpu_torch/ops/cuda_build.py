@@ -119,18 +119,25 @@ def lib() -> ctypes.CDLL:
             cdll.merlin_node_hash_group.restype = ci
             cdll.merlin_merkle_top.argtypes = [vp, ll, vp]
             cdll.merlin_merkle_top.restype = ci
-            cdll.merlin_ntt_block.argtypes = [vp, vp, vp, vp, vp,
-                                              ctypes.c_ulonglong, ci, ci, ll,
-                                              ci, ci, vp]
+            cdll.merlin_ntt_block.argtypes = [vp, vp]   # NttArgs*, stream
             cdll.merlin_ntt_block.restype = ci
             _lib = cdll
         return _lib
 
 
 def demangle(name: str) -> str:
-    """The plain name of a mangled C++ function name (_Z<len><name>...)."""
+    """The plain name of a mangled C++ function name (_Z<len><name>...),
+    with the integer and bool arguments of a template kernel
+    (``ntt_tile_kernel<9,1>``)."""
     m = re.match(r"_Z(\d+)", name)
-    return name[m.end():m.end() + int(m.group(1))] if m else name
+    if not m:
+        return name
+    end = m.end() + int(m.group(1))
+    args = re.match(r"I((?:L[ib]\d+E)+)E", name[end:])
+    if not args:
+        return name[m.end():end]
+    return name[m.end():end] + "<" + ",".join(
+        re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
 
 
 def resources(build_log: str) -> dict:

@@ -146,9 +146,11 @@ def coset_scale(coeffs: GL, shift: int = SHIFT) -> GL:
 
 # Memory plan for wide matrices (the zkEVM's 665-column cm1, 220-column
 # const): a whole-matrix LDE holds several full-size intermediates (kernel
-# A's output, the gathered copy, the coefficients).  extend_pol_blocked runs
-# the LDE in fixed 64-column blocks, so only one block's intermediates are
-# live beside the output.
+# A's output, the coefficients).  extend_pol_blocked runs the LDE in fixed
+# 64-column blocks, so only one block's intermediates are live beside the
+# output.  On the pipeline's sizes the kernels read each block's columns
+# out of the input and write its result into the output in place: no
+# slice is copied.
 EXTEND_BLOCK_COLS = 64
 
 
@@ -159,12 +161,13 @@ def extend_pol_blocked(a: GL, n_bits: int, n_bits_ext: int,
     memory (one block's intermediates at a time)."""
     assert a.ndim == 2, "blocked extend expects an (N, C) matrix"
     n, c = a.shape
-    if c <= block_cols:
-        return extend_pol(a, n_bits, n_bits_ext, shift)
+    assert n == 1 << n_bits
+    if a.stride(1) != 1 and c > 1:
+        a = a.contiguous()
     out = torch.empty((1 << n_bits_ext, c), dtype=torch.int64, device=a.device)
     for i in range(0, c, block_cols):
-        out[:, i:i + block_cols] = extend_pol(
-            a[:, i:i + block_cols], n_bits, n_bits_ext, shift)
+        ntt_cuda.extend_pol_device(a[:, i:i + block_cols], n_bits, n_bits_ext,
+                                   shift, out=out[:, i:i + block_cols])
     return out
 
 
