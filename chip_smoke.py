@@ -24,14 +24,19 @@ and the exit code is non-zero unless every phase passed):
            reading through the mid gather (into a column slice) at n_bits
            10 to 18 and c = 1, 3, 25, 64; blocked LDEs of 67 to 131 columns;
            the one-hot, impulse and Lagrange probes through ntt / intt /
-           extend_pol
+           extend_pol; the VM interpreter on the smoke circuit's three step
+           programs at the n_bits 17 proof's domains (sections as column
+           slices, edge words, p and 2^64 - 1 across their first rows) and
+           on a program whose destinations alias its operands
   permute  K1's path: the batched permutation entry point
            (``ops.poseidon_gl.permute``) on a (12, 270600) state, the
            PoseidonG state machine's capacity at 2^23 rows; columns checked
            against the python-int permutation
   golden   smoke proofs at n_bits 5, 10, 11 and 13 proven on the card equal,
            field by field, the proofs the JAX prover wrote (tests/data/); the
-           n_bits 11 proof is K6's path (its LDE runs block lengths 4 and 8)
+           n_bits 11 proof is K6's path (its LDE runs block lengths 4 and 8);
+           each takes the card's default route, the large-circuit path, and
+           the n_bits 13 proof is proven again on the small-circuit path
   commit   coset LDE + Poseidon Merkle tree of a seeded 2^17 x 665 matrix (the
            zkEVM's cm1 width), every 64-column block checked against the
            plain LDE, python-int openings; then one LDE block under
@@ -39,17 +44,27 @@ and the exit code is non-zero unless every phase passed):
            device kernel (the ``lde_block_split`` line: each kernel's device
            time and the block's, the difference being what runs between them)
   prove    the main path: one STARK proof of the smoke circuit at n_bits 17
-           through the kernels, verified; every transform of it takes kernel
-           B's fused gather (the plain ``_mid_gather`` never runs on the card)
+           through the kernels, verified; it takes the card's default route,
+           the large-circuit path (steps 2-4 on the VM, one vm_run launch
+           each; step 5 as weighted column sums), and every transform of it
+           takes kernel B's fused gather (the plain ``_mid_gather`` never
+           runs on the card)
+  prove_vm the same proof with the route forced while its StarkProver is
+           built: MERLIN_VM_MIN_NODES=0 and MERLIN_STEP5_MATRIX_MIN=0 (the
+           large-circuit path), then both at 10^9 (the small-circuit path:
+           the tree evaluator, step 5 per entry); each must equal the
+           ``prove`` phase's proof in every field and verify, the first
+           reject a changed public; each span's peak of allocated bytes
 
-Each path (permute, each golden proof, prove) is driven with every launch
-counter set to 0 just before it and read just after.
+Each path (permute, each golden proof, prove, prove_vm) is driven with
+every launch counter set to 0 just before it and read just after.
 
 Output: one JSON object per line.  An early line (phase
 ``poseidon_build``) gives each Poseidon kernel's registers and spills from
 the build log; the ``prove`` line gives the node-hash launches per kernel
 variant.  The line before the last lists every
-kernel (K1 to K6) with its launches on its path, its error against the
+kernel (K1 to K6, and vm_run, which has no Pallas counterpart) with its
+launches on its path, its error against the
 plain version, its time, the plain version's time and the card's bound for
 the same work.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -87,6 +102,11 @@ IMAD_PER_MUL64 = 4
 # shifts and adds can apply) and the reductions mod p shift and add, so
 # neither is counted, nor is any add: the bound is below any algorithm's.
 PERM_IMAD32 = (8 * 12 + 22) * (2 * 3 + 2 * 4)
+
+LARGE_PATH_ENV = {"MERLIN_VM_MIN_NODES": "0", "MERLIN_STEP5_MATRIX_MIN": "0"}
+SMALL_PATH_ENV = {"MERLIN_VM_MIN_NODES": "1000000000",
+                  "MERLIN_STEP5_MATRIX_MIN": "1000000000"}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -141,6 +161,65 @@ def call_bound_ms(kernel: str, a: dict):
     return bound_ms(n_bytes, mul64)
 
 
+def vm_programs(vm, info) -> dict:
+    """The three step programs as the prover compiles them on the large
+    path, by step."""
+    return {
+        2: vm.compile_program(info.step2prev, info, "n", ["cm1_n", "const"]),
+        3: vm.compile_program_ordered(info.step3prev, info, "n",
+                                      ["cm1_n", "cm2_n", "const"]),
+        4: vm.compile_program([(("acc", 0), info.c_exp)], info, "ext",
+                              ["cm1_2ns", "cm2_2ns", "cm3_2ns", "const"])}
+
+
+def random_vm_program(vm, rng, n_instr: int, n_regs: int, widths,
+                      n_consts: int) -> np.ndarray:
+    """A seeded (n_instr, 4) program of every opcode: a load into every
+    register first, then random instructions whose destinations may alias
+    their operands."""
+    def load(op, dst):
+        s = int(rng.integers(0, len(widths)))
+        dim = 3 if widths[s] >= 3 and rng.integers(0, 2) else 1
+        pos = int(rng.integers(0, widths[s] - (2 if dim == 3 else 0)))
+        return (op, s, (pos << 2) | dim, dst)
+
+    code = [load(vm.LOAD, r) for r in range(n_regs)]
+    while len(code) < n_instr:
+        op, dst = int(rng.integers(0, 11)), int(rng.integers(0, n_regs))
+        a, b = (int(v) for v in rng.integers(0, n_regs, 2))
+        c = int(rng.integers(0, n_consts))
+        if op in (vm.LOAD, vm.LOADR):
+            code.append(load(op, dst))
+        elif op == vm.LOADC:
+            code.append((op, c, 0, dst))
+        elif op in (vm.ADDC, vm.SUBC, vm.CSUBC, vm.MULC):
+            code.append((op, a, c, dst))
+        else:
+            code.append((op, a, 0 if op == vm.NEG else b, dst))
+    return np.array(code, dtype=np.int32)
+
+
+def vm_code_bound_ms(vm, code: np.ndarray, n: int, pre_words: int,
+                     n_out: int):
+    """Bound of one run of `code` over n rows: the section words it loads
+    (each column once, whatever its loads), its preloads and its outputs,
+    once each; its GL3 products, six 64-bit products a MUL or MULC."""
+    cols, n_mul = set(), 0
+    for op, a, b, _d in code.tolist():
+        if op in (vm.LOAD, vm.LOADR):
+            cols |= {(a, (b >> 2) + j) for j in range(3 if b & 3 == 3 else 1)}
+        n_mul += op in (vm.MUL, vm.MULC)
+    words = len(cols) + pre_words + 3 * n_out
+    return bound_ms(words * n * 8, 6 * n_mul * n)
+
+
+def vm_bound_ms(vm, prog, n: int):
+    """Bound of one run of the compiled `prog` over n rows (x and Zi are
+    base-field preloads, one word a row)."""
+    pre_words = sum(1 if kind in ("x", "Zi") else 3 for _r, kind in prog.preload)
+    return vm_code_bound_ms(vm, prog.code, n, pre_words, len(prog.out_regs))
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest |a - b| over the field elements read as unsigned words (0 is
     the only acceptable value: the arithmetic is exact)."""
@@ -161,12 +240,14 @@ def main() -> int:
     from merlin_zkevm_prover_tpu_torch.models.smoke import build_smoke_air
     from merlin_zkevm_prover_tpu_torch.ops import cuda_build
     from merlin_zkevm_prover_tpu_torch.ops import goldilocks as gl
-    from merlin_zkevm_prover_tpu_torch.ops import ntt, ntt_cuda
+    from merlin_zkevm_prover_tpu_torch.ops import ntt, ntt_cuda, vm_cuda
+    from merlin_zkevm_prover_tpu_torch.ops.goldilocks3 import GL3
     from merlin_zkevm_prover_tpu_torch.ops import poseidon_cuda as pc
     from merlin_zkevm_prover_tpu_torch.ops import poseidon_gl as pg
     from merlin_zkevm_prover_tpu_torch.ops.poseidon_constants import CAPACITY
     from merlin_zkevm_prover_tpu_torch.stark import (
         MerkleTreeGL, StarkProof, StarkProver, VerifyError, compile_air, verify)
+    from merlin_zkevm_prover_tpu_torch.stark import vm
     from merlin_zkevm_prover_tpu_torch.utils.timer import TimerLog
     from merlin_zkevm_prover_tpu_torch.utils.timer import device_time_ms as time_ms
 
@@ -204,12 +285,47 @@ def main() -> int:
 
     def zero_counters() -> None:
         for counters in (pc.LAUNCHES, pc.NODE_HASH_LAUNCHES, ntt_cuda.LAUNCHES,
-                         ntt_cuda.SUB_LAUNCHES):
+                         ntt_cuda.SUB_LAUNCHES, vm_cuda.LAUNCHES):
             for k in counters:
                 counters[k] = 0
 
     def read_counters() -> dict:
-        return {**pc.LAUNCHES, **ntt_cuda.LAUNCHES, **ntt_cuda.SUB_LAUNCHES}
+        return {**pc.LAUNCHES, **ntt_cuda.LAUNCHES, **ntt_cuda.SUB_LAUNCHES,
+                **vm_cuda.LAUNCHES}
+
+    def took_large_path(prover) -> bool:
+        return None not in (prover._vm2, prover._vm3, prover._vm4) and \
+            prover._step5_matrix
+
+    def route_prover(info, const_vals, large: bool):
+        """A StarkProver built with both thresholds set for the large-circuit
+        path (0) or the small-circuit one (10^9), restored afterwards;
+        fails unless it took that path (the VM for steps 2-4 and the matrix
+        forms for step 5, or neither)."""
+        env = LARGE_PATH_ENV if large else SMALL_PATH_ENV
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            prover = StarkProver(info, const_vals)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        small = (prover._vm2, prover._vm3, prover._vm4) == (None,) * 3 and \
+            not prover._step5_matrix
+        if not (took_large_path(prover) if large else small):
+            raise AssertionError("the prover did not take the "
+                                 f"{'large' if large else 'small'}-circuit "
+                                 "path")
+        return prover
+
+    def same_proof(what, proof, ref) -> None:
+        for field in ("roots", "evals", "fri_roots", "final_pol",
+                      "queries_step0", "queries_fri", "publics"):
+            if getattr(proof, field) != getattr(ref, field):
+                raise AssertionError(f"{what}: field {field} differs")
 
     def log_launches():
         """Log every launching call of the wrappers a proof runs, with its
@@ -303,7 +419,7 @@ def main() -> int:
     # ----------------------------------------------------------------- kernels
     checks = []
     worst = {"permute": 0, "linear_hash": 0, "node_hash": 0, "ntt_short": 0,
-             "ntt_block": 0, "ntt_block_short": 0}
+             "ntt_block": 0, "ntt_block_short": 0, "vm_run": 0}
 
     def hold(kernel: str, what: str, got, want, **extra) -> None:
         err = max_abs_err(got, want)
@@ -505,11 +621,77 @@ def main() -> int:
     x = rnd(1 << 18, 1)
     hold("ntt_short", "extend_pol n_bits = 18 -> 19", ntt.extend_pol(x, 18, 19),
          ntt.extend_pol_plain(x, 18, 19))
+    # the VM interpreter: the smoke circuit's three step programs at the
+    # n_bits = 17 proof's domains (2^17 rows for steps 2 and 3, 2^18 for step
+    # 4, whose loads rotate by 2^blowup_bits rows and wrap at the end), the
+    # sections column slices of wider matrices with the edge words, p and
+    # 2^64 - 1 among them, across their first rows
+    air17, trace17 = build_smoke_air(n_bits=17, seed=42)
+    info17 = compile_air(air17, n_queries=32)
+    vm_progs = vm_programs(vm, info17)
+
+    def vm_case(step):
+        """The step program, its row count, its sections and its other
+        run_program arguments, seeded."""
+        prog = vm_progs[step]
+        n = info17.n if step < 4 else info17.n_ext
+        secs = {}
+        for name in prog.sections:
+            w = info17.n_constants if name == "const" else \
+                info17.section_widths[name.replace("_2ns", "_n")]
+            secs[name] = edge_rows(rnd(n, w + 5))[:, 2:2 + w]
+        kw = dict(challenges=GL3(rnd(8), rnd(8), rnd(8)),
+                  publics=rnd(info17.n_publics), x=rnd(n), zi=rnd(n),
+                  roll_k=1 if step < 4 else 1 << info17.blowup_bits)
+        return prog, n, secs, kw
+
+    for step in sorted(vm_progs):
+        prog, n, secs, kw = vm_case(step)
+        got = vm.run_program(prog, info17, secs, n, **kw)
+        want = vm.run_program_plain(prog, info17, secs, n, **kw)
+        for dest in prog.out_regs:
+            hold("vm_run", f"step {step} program ({len(prog.code)} "
+                 f"instructions, {prog.n_regs} registers, n = {n}), dest "
+                 f"{dest}", torch.stack(got[dest]), torch.stack(want[dest]))
+    del got, want, secs, kw
+    # a seeded random program of the length the default threshold sends to
+    # the VM (the step-4 program of tests/test_torch_stark_large.py's wide
+    # circuit has 6,350 instructions over 31 registers), at 2^18 rows
+    rand_code = random_vm_program(vm, np.random.default_rng(2027), 6000, 32,
+                                  (7, 2, 27, 6), 64)
+
+    def random_case():
+        """vm_run's arguments for `rand_code` at 2^18 rows, seeded."""
+        n = 1 << 18
+        secs = [edge_rows(rnd(n, w + 3))[:, 1:1 + w] for w in (7, 2, 27, 6)]
+        return (rand_code, rnd(64, 3), secs, [(0, GL3(rnd(n), rnd(n), rnd(n)))],
+                list(range(32)), 32, n, 4)
+
+    rand_args = random_case()
+    for j, (g, w_) in enumerate(zip(vm_cuda.vm_run(*rand_args),
+                                    vm_cuda.vm_run_plain(*rand_args))):
+        hold("vm_run", f"random program (6000 instructions, 32 registers, "
+             f"n = {1 << 18}), register {j}", g, w_)
+    del g, w_, rand_args
+    # destinations that alias operands (the compiler never emits them)
+    n = 1 << 17
+    alias_sec = edge_rows(rnd(n, 6))[:, 1:]
+    alias_code = np.array([
+        (vm.LOAD, 0, (1 << 2) | 3, 0), (vm.LOADR, 0, (3 << 2) | 1, 1),
+        (vm.ADD, 0, 1, 0), (vm.MUL, 1, 0, 0), (vm.SUB, 0, 2, 2),
+        (vm.MULC, 2, 1, 2), (vm.ADDC, 2, 0, 3), (vm.SUBC, 3, 2, 3),
+        (vm.CSUBC, 3, 1, 3), (vm.NEG, 3, 0, 3), (vm.LOADC, 2, 0, 1),
+        (vm.MUL, 3, 3, 3), (vm.ADD, 3, 1, 1)], dtype=np.int32)
+    alias = (alias_code, rnd(3, 3), [alias_sec],
+             [(2, GL3(rnd(n), rnd(n), rnd(n)))], [0, 1, 2, 3], 4, n, 3)
+    for j, (g, w_) in enumerate(zip(vm_cuda.vm_run(*alias),
+                                    vm_cuda.vm_run_plain(*alias))):
+        hold("vm_run", f"aliasing program, n = {n}, register {j}", g, w_)
     emit({"phase": "kernels_check", "mismatches": 0, "cases": checks,
           "linear_hash_2^18x665_ms": ms_lh665,
           "linear_hash_2^18x665_bound_ms": call_bound_ms(
               "linear_hash", {"rows": x665})[0]})
-    del x665, x, f, i_, e, st
+    del x665, x, f, i_, e, st, g, w_, alias, alias_sec
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- permute
@@ -559,15 +741,32 @@ def main() -> int:
         ref = StarkProof.from_json(json.dumps(golden["proof"]))
         if prover.const_tree.root() != golden["const_root"]:
             raise AssertionError(f"golden n_bits {nb}: const root differs")
-        for field in ("roots", "evals", "fri_roots", "final_pol",
-                      "queries_step0", "queries_fri", "publics"):
-            if getattr(proof, field) != getattr(ref, field):
-                raise AssertionError(f"golden n_bits {nb}: field {field} differs")
+        same_proof(f"golden n_bits {nb}", proof, ref)
         verify(info, prover.const_tree.root(), proof)
         golden_out.append({"n_bits": nb, "equal": True, "verified": True,
                            "section_widths": info.section_widths,
                            "fri_step_bits": info.fri_step_bits,
                            "launches": golden_launches[nb]})
+        if golden_launches[nb]["vm_run"] != 3 or not took_large_path(prover):
+            raise AssertionError(f"golden n_bits {nb}: the default route on "
+                                 "the card is not the large-circuit path")
+        if nb == 13:
+            # the small-circuit path: the same golden proof
+            torch.cuda.synchronize()
+            zero_counters()
+            prover = route_prover(info, np.stack(air.const_values, axis=1),
+                                  large=False)
+            proof = prover.prove(trace)
+            torch.cuda.synchronize()
+            small_launches = read_counters()
+            if small_launches["vm_run"] != 0:
+                raise AssertionError("golden n_bits 13, small path: "
+                                     f"{small_launches['vm_run']} VM launches")
+            same_proof("golden n_bits 13, small path", proof, ref)
+            verify(info, prover.const_tree.root(), proof)
+            golden_out.append({"n_bits": nb, "path": "small (tree evaluator, "
+                               "step 5 per entry)", "equal": True,
+                               "verified": True, "launches": small_launches})
         if nb == 11:
             info11 = info
             k6_proof = per_proof(log["ntt_block_short"], "ntt_block_short")
@@ -656,8 +855,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------- prove
-    air, trace = build_smoke_air(n_bits=17, seed=42)
-    info = compile_air(air, n_queries=32)
+    air, trace, info = air17, trace17, info17
     const_vals = np.stack(air.const_values, axis=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -679,6 +877,9 @@ def main() -> int:
     if log["mid_gather"] or launches["ntt_block_gather"] <= 0:
         raise AssertionError("the proof's transforms did not all take kernel "
                              "B's fused gather")
+    if launches["vm_run"] != 3 or not took_large_path(prover):
+        raise AssertionError("the main path did not take the large-circuit "
+                             "path, the card's default")
     for k in ("linear_hash", "node_hash", "ntt_short", "ntt_block"):
         if launches[k] <= 0:
             raise AssertionError(f"main path never launched kernel {k}")
@@ -713,6 +914,60 @@ def main() -> int:
           "tree_heights": tree_heights, "verified": True,
           "tampered_rejected": True})
 
+    # ---------------------------------------------------------------- prove_vm
+    # the same proof with both routes forced by the two thresholds: the
+    # large-circuit path (the card's default, so the same route as ``prove``)
+    # and the small-circuit path; each span's peak of allocated bytes
+    routes = {}
+    for large in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        zero_counters()
+        t0 = time.time()
+        prover_r = route_prover(info, const_vals, large)
+        torch.cuda.synchronize()
+        t_setup_r = time.time() - t0
+        tlog_r = TimerLog("chip_smoke_route", quiet=True, peak_memory=True)
+        t0 = time.time()
+        proof_r = prover_r.prove(trace, timer=tlog_r)
+        torch.cuda.synchronize()
+        t_prove_r = time.time() - t0
+        launches_r = read_counters()
+        what = "prove_vm" if large else "prove_vm, small path"
+        if launches_r["vm_run"] != (3 if large else 0):
+            raise AssertionError(f"{what}: {launches_r['vm_run']} VM launches")
+        for k in ("linear_hash", "node_hash", "ntt_short", "ntt_block"):
+            if launches_r[k] <= 0:
+                raise AssertionError(f"{what} never launched kernel {k}")
+        same_proof(f"{what} against prove", proof_r, proof)
+        verify(info, prover_r.const_tree.root(), proof_r)
+        routes[large] = {
+            "env": LARGE_PATH_ENV if large else SMALL_PATH_ENV,
+            "setup_s": t_setup_r, "prove_s": t_prove_r,
+            "spans_s": tlog_r.as_dict(),
+            "peak_memory_bytes": max(tlog_r.peaks.values()),
+            "span_peak_bytes": dict(tlog_r.peaks), "launches": launches_r,
+            "vm_launches": launches_r["vm_run"], "equal_to_prove_phase": True,
+            "verified": True}
+        if large:
+            programs = {str(k): {"instructions": len(p.code),
+                                 "registers": p.n_regs}
+                        for k, p in ((2, prover_r._vm2), (3, prover_r._vm3),
+                                     (4, prover_r._vm4))}
+            bad = StarkProof.from_json(proof_r.to_json())
+            bad.publics[0] = (bad.publics[0] + 1) % P
+            try:
+                verify(info, prover_r.const_tree.root(), bad)
+            except VerifyError:
+                pass
+            else:
+                raise AssertionError("prove_vm: a proof with a changed "
+                                     "public was accepted")
+        del prover_r, proof_r
+    emit({"phase": "prove_vm", "circuit": "smoke", "n_bits": info.n_bits,
+          "programs": programs, **routes[True], "tampered_rejected": True,
+          "small_path": routes[False]})
+
     # ---------------------------------------- times at the paths' shapes
     # Each entry: one launch at the largest shape its path gives it, and, for
     # the proofs' kernels, every launch of the proof timed again on its own
@@ -727,8 +982,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "merlin_zkevm_prover_tpu_torch/csrc/" + (
                 "poseidon_gl.cu" if name in ("permute", "linear_hash",
-                                             "node_hash") else "ntt_gl.cu"),
-            "replaces": "merlin_zkevm_prover_tpu/ops/" + replaces,
+                                             "node_hash")
+                else "vm_gl.cu" if name == "vm_run" else "ntt_gl.cu"),
+            "replaces": "merlin_zkevm_prover_tpu/" + replaces,
             "shape": shape, "launches": launches_,
             "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
@@ -738,7 +994,7 @@ def main() -> int:
         return {"per_proof_ms": ms_bound[0], "per_proof_bound_ms": ms_bound[1]}
 
     # K1 on its path's state
-    entry("permute", "poseidon_tpu.py:317", [12, B_PERM], perm_launches["permute"],
+    entry("permute", "ops/poseidon_tpu.py:317", [12, B_PERM], perm_launches["permute"],
           time_ms(lambda: pc.permute(perm_state), 7),
           time_ms(lambda: pc.permute_plain(perm_state), 2),
           perm_bound_ms(B_PERM, 2 * 12 * B_PERM * 8),
@@ -748,7 +1004,7 @@ def main() -> int:
     x = rnd(n_ext, wmax)
     hold("linear_hash", f"main path ({n_ext}, {wmax})", pc.linear_hash(x),
          pc.linear_hash_plain(x))
-    entry("linear_hash", "poseidon_tpu.py:326", [n_ext, wmax],
+    entry("linear_hash", "ops/poseidon_tpu.py:326", [n_ext, wmax],
           launches["linear_hash"], time_ms(lambda: pc.linear_hash(x), 7),
           time_ms(lambda: pc.linear_hash_plain(x), 2),
           call_bound_ms("linear_hash", {"rows": x}),
@@ -785,7 +1041,7 @@ def main() -> int:
     def tree_bound(h):
         return sum(perm_bound_ms(h >> k, (h >> k) * 12 * 8)[0]
                    for k in range(1, h.bit_length()))
-    entry("node_hash", "poseidon_tpu.py:350", [npairs, 4], launches["node_hash"],
+    entry("node_hash", "ops/poseidon_tpu.py:350", [npairs, 4], launches["node_hash"],
           time_ms(lambda: pc.node_hash(l, r), 7),
           time_ms(lambda: pc.node_hash_plain(l, r), 2),
           perm_bound_ms(npairs, npairs * 12 * 8),
@@ -811,7 +1067,7 @@ def main() -> int:
     t = tw(fold, True)
     hold("ntt_short", f"main path ({1 << fold}, {b})",
          ntt_cuda.ntt_short(x, t, fold), ntt_cuda.ntt_short_plain(x, t, fold))
-    entry("ntt_short", "ntt_tpu.py:192", [1 << fold, b], launches["ntt_short"],
+    entry("ntt_short", "ops/ntt_tpu.py:192", [1 << fold, b], launches["ntt_short"],
           time_ms(lambda: ntt_cuda.ntt_short(x, t, fold), 7),
           time_ms(lambda: ntt_cuda.ntt_short_plain(x, t, fold), 2),
           call_bound_ms("ntt_short", {"x": x, "log_l": fold}),
@@ -844,7 +1100,7 @@ def main() -> int:
         fused[what + "_ms"] = time_ms(lambda: fn(**args), 7)
         fused[what + "_plain_ms"] = time_ms(lambda: plain_fn(**args), 2)
         fused[what + "_bound_ms"] = call_bound_ms("ntt_block", args)[0]
-    entry("ntt_block", "ntt_tpu.py:736", [n2, b], launches["ntt_block"],
+    entry("ntt_block", "ops/ntt_tpu.py:736", [n2, b], launches["ntt_block"],
           time_ms(lambda: ntt_cuda.ntt_block(x, t, log_l, False), 7),
           time_ms(lambda: ntt_cuda.ntt_block_plain(x, t, log_l, False), 2),
           call_bound_ms("ntt_block", dict(x=x, log_l=log_l, u=None, v=None,
@@ -875,12 +1131,51 @@ def main() -> int:
             call_bound_ms("ntt_block_short", dict(
                 x=x, log_l=log_l, u=None, v=None, const_scale=None)))
     shape, ms, plain_ms, bound = k6["lde"]
-    entry("ntt_block_short", "ntt_tpu.py:517", shape,
+    entry("ntt_block_short", "ops/ntt_tpu.py:517", shape,
           golden_launches[11]["ntt_block_short"], ms, plain_ms, bound,
           path="golden proof, n_bits 11", input_rows=shape[0] // 2,
           intt_shape=k6["intt"][0], intt_ms=k6["intt"][1],
           intt_plain_ms=k6["intt"][2], intt_bound_ms=k6["intt"][3][0],
           **per_proof_keys(k6_proof))
+
+    # vm_run: each program of the proof timed by its kernel launch alone on
+    # the arguments its kernels_check case built (the step-4 program at
+    # 2^18 rows is the entry's shape), launched once each per proof
+    vm_times = {}
+    for step in sorted(vm_progs):
+        prog, n, secs, kw = vm_case(step)
+        args = (*vm._launch_inputs(prog, secs, n, kw["challenges"],
+                                   kw["publics"], kw["x"], kw["zi"], None,
+                                   None, None),
+                list(prog.out_regs.values()), prog.n_regs, n, kw["roll_k"])
+        f = vm_cuda._vm_fields(*args)
+        cuda_build.check(vm_cuda._launch(f), "vm_run launch")
+        vm_times[step] = (time_ms(lambda: vm_cuda._launch(f), 7),
+                          time_ms(lambda: vm_cuda.vm_run_plain(*args), 2),
+                          vm_bound_ms(vm, prog, n), n)
+    f = vm_cuda._vm_fields(*random_case())
+    rand_ms = time_ms(lambda: vm_cuda._launch(f), 5)
+    rand_bound = vm_code_bound_ms(vm, rand_code, 1 << 18, 3, 32)
+    del f, args, secs, kw
+    ms4, plain4, bound4, n4 = vm_times[4]
+    prog4 = vm_progs[4]
+    entry("vm_run", "stark/vm.py:532",
+          [len(prog4.code), prog4.n_regs, n4], launches["vm_run"],
+          ms4, plain4, bound4, path="prove (steps 2, 3 and 4)",
+          pallas_kernel=False, note="the reference runs its VM as one "
+          "lax.scan; no TPU kernel stands behind this one",
+          shape_is="[instructions, registers, rows] of the step-4 program",
+          per_program={str(k): {"instructions": len(vm_progs[k].code),
+                                "registers": vm_progs[k].n_regs, "rows": t[3],
+                                "ms": t[0], "plain_ms": t[1],
+                                "bound_ms": t[2][0], "bound_by": t[2][1]}
+                       for k, t in vm_times.items()},
+          random_program={"instructions": 6000, "registers": 32,
+                          "rows": 1 << 18, "ms": rand_ms,
+                          "bound_ms": rand_bound[0],
+                          "bound_by": rand_bound[1]},
+          per_proof_ms=sum(t[0] for t in vm_times.values()),
+          per_proof_bound_ms=sum(t[2][0] for t in vm_times.values()))
 
     emit({"phase": "main_path_shapes_check", "mismatches": 0,
           "cases": [c for c in checks

@@ -142,3 +142,43 @@ __device__ __forceinline__ uint64_t gl_pow7_lazy(uint64_t a) {
     uint64_t a4 = gl_sqr_lazy(a2);
     return gl_mul_lazy(a3, a4);
 }
+
+// ---------------------------------------------------------------------------
+// Canonical negation and the cubic extension GF(p^3) = GF(p)[x] / (x^3 - x - 1)
+// (the port's ops/goldilocks3.py).  Every input and every result canonical.
+// ---------------------------------------------------------------------------
+
+// in: a canonical.  out: canonical -a.
+__device__ __forceinline__ uint64_t gl_neg(uint64_t a) { return a ? GL_P - a : 0; }
+
+struct gl3_t {
+    uint64_t c0, c1, c2;
+};
+
+__device__ __forceinline__ gl3_t gl3_add(gl3_t a, gl3_t b) {
+    return {gl_add(a.c0, b.c0), gl_add(a.c1, b.c1), gl_add(a.c2, b.c2)};
+}
+
+__device__ __forceinline__ gl3_t gl3_sub(gl3_t a, gl3_t b) {
+    return {gl_sub(a.c0, b.c0), gl_sub(a.c1, b.c1), gl_sub(a.c2, b.c2)};
+}
+
+__device__ __forceinline__ gl3_t gl3_neg(gl3_t a) {
+    return {gl_neg(a.c0), gl_neg(a.c1), gl_neg(a.c2)};
+}
+
+// The six-product Karatsuba form of ops/goldilocks3.py mul (the reference's
+// mulAddElement_adim3): with x^3 = x + 1,
+//   c0 = C + (D - E) - F,  c1 = A + C - 2E - D,  c2 = B - (D - E).
+__device__ __forceinline__ gl3_t gl3_mul(gl3_t a, gl3_t b) {
+    const uint64_t A = gl_mul(gl_add(a.c0, a.c1), gl_add(b.c0, b.c1));
+    const uint64_t B = gl_mul(gl_add(a.c0, a.c2), gl_add(b.c0, b.c2));
+    const uint64_t C = gl_mul(gl_add(a.c1, a.c2), gl_add(b.c1, b.c2));
+    const uint64_t D = gl_mul(a.c0, b.c0);
+    const uint64_t E = gl_mul(a.c1, b.c1);
+    const uint64_t F = gl_mul(a.c2, b.c2);
+    const uint64_t G = gl_sub(D, E);
+    return {gl_sub(gl_add(C, G), F),
+            gl_sub(gl_sub(gl_sub(gl_add(A, C), E), E), D),
+            gl_sub(B, G)};
+}

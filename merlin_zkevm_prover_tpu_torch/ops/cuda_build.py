@@ -121,6 +121,8 @@ def lib() -> ctypes.CDLL:
             cdll.merlin_merkle_top.restype = ci
             cdll.merlin_ntt_block.argtypes = [vp, vp]   # NttArgs*, stream
             cdll.merlin_ntt_block.restype = ci
+            cdll.merlin_vm_run.argtypes = [vp, vp]      # VmArgs*, stream
+            cdll.merlin_vm_run.restype = ci
             _lib = cdll
         return _lib
 

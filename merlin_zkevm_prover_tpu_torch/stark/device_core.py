@@ -6,16 +6,19 @@ interleaves them with the sequential Fiat-Shamir transcript (the
 reference's per-stage structure, with the host/device split at exactly the
 transcript interactions).
 
-This is the small-circuit half: expression programs run on the tree
+Two halves.  The small-circuit half runs expression programs on the tree
 evaluator in node-count-bounded chunks (a fresh memo per chunk bounds how
-many whole-domain intermediates are alive at once), and step 5 is the
-per-polynomial form.
+many whole-domain intermediates are alive at once) and step 5 in the
+per-polynomial form.  The large-circuit half runs steps 2-4 on the VM
+(``stark/vm.py``: one interpreter launch per program) and step 5 as
+weighted column sums; the prover picks a half per step by program size.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..ops import goldilocks as gl
@@ -23,6 +26,7 @@ from ..ops import goldilocks3 as gl3
 from ..ops import ntt as nttmod
 from ..ops.goldilocks import GL, P, SHIFT
 from ..ops.goldilocks3 import GL3
+from . import vm as vm_mod
 from .compiler import StarkInfo
 from .evaluator import EvalContext, eval_expr, eval_program, normalize
 
@@ -304,3 +308,191 @@ def step4_span_chunks(info: StarkInfo, max_nodes: int):
     """Constraint spans for step4 bounded by expression node count."""
     return [(s[0], s[1])
             for s in plan_program_chunks(info.step42ns, max_nodes)]
+
+
+# ---------------------------------------------------------------------------
+# Large circuits: the evaluation map and FRI polynomial as weighted column
+# sums, steps 2-4 on the VM
+# ---------------------------------------------------------------------------
+
+
+def _sum_axis(a: GL, axis: int) -> GL:
+    """Exact modular sum along `axis` via log-depth halving."""
+    return gl.sum_axis0(a if axis == 0 else a.movedim(axis, 0))
+
+
+def ev_gather_plan(info: StarkInfo):
+    """Static plan: group ev_map entries by (section, dim, prime) with the
+    felt positions to gather and the ev indices they land in."""
+    groups: Dict = {}
+    for k, (kind, pid, prime) in enumerate(info.ev_map):
+        if kind == "const":
+            sec, pos, dim = "const", pid, 1
+        else:
+            pm = info.cm_pols[info.qs[pid] if kind == "q" else pid]
+            sec = pm.section if pm.section == "cm4_2ns" else \
+                pm.section.replace("_n", "_2ns")
+            pos, dim = pm.section_pos, pm.dim
+        groups.setdefault((sec, dim, bool(prime)), []).append((pos, k))
+    return groups
+
+
+def _index(idxs, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(idxs, dtype=np.int64), device=device)
+
+
+def _take_cols(mat: GL, idxs) -> GL:
+    return mat.index_select(1, _index(idxs, mat.device))
+
+
+# The matrix forms of step 5 form each GL3 product of a gathered (rows, K)
+# block whole, in eager ops: while gl3.mul's last Karatsuba product is
+# formed, the three gathered blocks, five finished products and the twelve
+# intermediates of one gl.mul (al, ah, p00..p11, mid, midc, lo, c0, hi and
+# the reduction's) are alive, some 24 blocks of rows * K words.  K is the
+# widest block whose temporaries fit STEP5_BLOCK_BYTES; at one column a
+# block costs what the per-entry form's product does.
+STEP5_LIVE_BLOCKS = 24
+STEP5_BLOCK_BYTES = 1 << 30
+
+
+def step5_block_cols(rows: int) -> int:
+    """Columns of one gathered block of the matrix forms over `rows` rows."""
+    return max(1, STEP5_BLOCK_BYTES // (STEP5_LIVE_BLOCKS * rows * 8))
+
+
+def step5_evals_matrix(info: StarkInfo, sections: Dict[str, GL],
+                       const_2ns: GL, xi: GL3,
+                       k_chunk: Optional[int] = None) -> GL3:
+    """evmap as weighted column sums: evals[k] = sum_i p_k(x_i) * lev_i.
+
+    The same values as step5_evals (modular sums are exact), one gathered
+    (n, K) block per (section, dim, prime) group instead of one product per
+    entry.  ``k_chunk`` caps K; by default step5_block_cols(n)."""
+    n = info.n
+    k_chunk = k_chunk or step5_block_cols(n)
+    dev = xi.device
+    blow = 1 << info.blowup_bits
+    shift_inv = pow(SHIFT, P - 2, P)
+    w_n = gl.w(info.n_bits)
+    xis = gl3.mul_base(xi, shift_inv)
+    wxis = gl3.mul_base(gl3.mul_base(xi, w_n), shift_inv)
+    lev = _intt3(gl3.powers_scan(xis, n))
+    lpev = _intt3(gl3.powers_scan(wxis, n))
+
+    size_ev = len(info.ev_map)
+    out = [torch.zeros((size_ev,), dtype=torch.int64, device=dev)
+           for _ in range(3)]
+    for (sec, dim, prime), entries in ev_gather_plan(info).items():
+        mat = (const_2ns if sec == "const" else sections[sec])[::blow]
+        lcoef = lpev if prime else lev
+        for c0 in range(0, len(entries), k_chunk):
+            part = entries[c0:c0 + k_chunk]
+            pos = np.array([p for (p, _k) in part])
+            ks = _index([k for (_p, k) in part], dev)
+            if dim == 1:
+                cols = _take_cols(mat, pos)       # (n, K)
+                for c, lc in enumerate(lcoef):
+                    out[c][ks] = _sum_axis(gl.mul(cols, lc[:, None]), 0)
+            else:
+                v = GL3(_take_cols(mat, pos), _take_cols(mat, pos + 1),
+                        _take_cols(mat, pos + 2))
+                prod = gl3.mul(v, GL3(*(lc[:, None] for lc in lcoef)))
+                for c, comp in enumerate(prod):
+                    out[c][ks] = _sum_axis(comp, 0)
+    return GL3(*out)
+
+
+def step5_fri_matrix(info: StarkInfo, sections: Dict[str, GL],
+                     const_2ns: GL, challenges: GL3, publics: GL,
+                     x_2ns: GL, zi: GL, evals: GL3, xi: GL3,
+                     k_chunk: Optional[int] = None) -> GL3:
+    """FRI polynomial as weighted column sums.
+
+    step52ns terms are (p_k - eval_k) Horner-folded in v1 per (plain,
+    primed) subsequence; distributing the fold gives
+        F_sub = sum_j v1^(K-1-j) * p_(k_j)  -  sum_j v1^(K-1-j) * eval_(k_j)
+    with the first sum a gather + broadcast-mul + log-sum over columns and
+    the second a scalar: the same modular values as step5_fri_pol.
+    ``k_chunk`` caps a block's columns; by default step5_block_cols(n_ext)."""
+    n_ext = info.n_ext
+    k_chunk = k_chunk or step5_block_cols(n_ext)
+    dev = xi.device
+    v1 = challenges[5]
+    v2 = challenges[6]
+    wxi = gl3.mul_base(xi, gl.w(info.n_bits))
+    xdiv = x_div_x_sub(x_2ns, xi)
+    xdivw = x_div_x_sub(x_2ns, wxi)
+
+    plan = ev_gather_plan(info)
+    plain = [k for k, (_, _, pr) in enumerate(info.ev_map) if not pr]
+    primed = [k for k, (_, _, pr) in enumerate(info.ev_map) if pr]
+    orders = {False: {k: j for j, k in enumerate(plain)},
+              True: {k: j for j, k in enumerate(primed)}}
+    counts = {False: len(plain), True: len(primed)}
+    # v1 powers, high power first: coeff[k] = v1^(K-1-order[k])
+    pows = gl3.powers_scan(v1, max(counts[False], counts[True], 1))
+
+    acc = {False: gl3.zeros((n_ext,), dev), True: gl3.zeros((n_ext,), dev)}
+    sub = {False: gl3.zeros((), dev), True: gl3.zeros((), dev)}
+
+    for (sec, dim, prime), entries in plan.items():
+        mat = const_2ns if sec == "const" else sections[sec]
+        for c0 in range(0, len(entries), k_chunk):
+            part = entries[c0:c0 + k_chunk]
+            pos = np.array([p for (p, _k) in part])
+            ks = _index([k for (_p, k) in part], dev)
+            cf = pows[_index([counts[prime] - 1 - orders[prime][k]
+                              for (_p, k) in part], dev)]    # (K,) GL3
+            # subtracted scalar: sum_k coeff_k * eval_k
+            sub[prime] = gl3.add(sub[prime], gl3.sum_axis0(
+                gl3.mul(cf, evals[ks])))
+            cfb = GL3(*(c[None, :] for c in cf))
+            if dim == 1:
+                cols = _take_cols(mat, pos)              # (n_ext, K)
+                term = GL3(*(_sum_axis(gl.mul(cols, c), 1) for c in cfb))
+            else:
+                v = GL3(_take_cols(mat, pos), _take_cols(mat, pos + 1),
+                        _take_cols(mat, pos + 2))
+                term = GL3(*(_sum_axis(c, 1) for c in gl3.mul(v, cfb)))
+            acc[prime] = gl3.add(acc[prime], term)
+
+    f_val = gl3.mul(gl3.sub(acc[False], sub[False]), xdiv)
+    if primed:
+        fw = gl3.mul(gl3.sub(acc[True], sub[True]), gl3.mul(xdivw, v2))
+        f_val = gl3.add(f_val, fw)
+    return f_val
+
+
+def step2_vm(info: StarkInfo, vmprog, sections: Dict[str, GL], const_n: GL,
+             challenges: GL3, publics: GL, x_n: GL):
+    """f/t expressions via the VM; returns exp id -> (n,) GL3."""
+    out = vm_mod.run_program(
+        vmprog, info, {"cm1_n": sections["cm1_n"], "const": const_n}, info.n,
+        challenges=challenges, publics=publics, x=x_n, roll_k=1)
+    return {dest[1]: v for dest, v in out.items()}
+
+
+def step3_vm(info: StarkInfo, vmprog, sections: Dict[str, GL], const_n: GL,
+             challenges: GL3, publics: GL, x_n: GL):
+    """num/den/im columns via the VM; returns cm id -> (n,) GL3."""
+    out = vm_mod.run_program(
+        vmprog, info, {"cm1_n": sections["cm1_n"], "cm2_n": sections["cm2_n"],
+                       "const": const_n}, info.n,
+        challenges=challenges, publics=publics, x=x_n, roll_k=1)
+    return {dest[1]: v for dest, v in out.items()}
+
+
+def step4_vm(info: StarkInfo, vmprog, sections: Dict[str, GL],
+             const_2ns: GL, challenges: GL3, publics: GL, x_2ns: GL,
+             zi: GL) -> GL:
+    """Full quotient via the VM (c_exp as ONE dest: the alpha-Horner
+    accumulator folds inside the program, so constraint values die at once
+    instead of pinning a register each), then the INTT/split/NTT
+    finalize."""
+    secs = {k: sections[k] for k in ("cm1_2ns", "cm2_2ns", "cm3_2ns")}
+    secs["const"] = const_2ns
+    out = vm_mod.run_program(
+        vmprog, info, secs, info.n_ext, challenges=challenges,
+        publics=publics, x=x_2ns, zi=zi, roll_k=1 << info.blowup_bits)
+    return step4_finalize(info, out[("acc", 0)], zi)

@@ -17,12 +17,15 @@ All bulk math is in the device stage functions (device_core.py); only
 roots, challenges and query rows cross the host boundary (bytes per
 interaction, the reference's own host/device split).
 
-This is the small-circuit path: expression programs on the tree evaluator,
-step 5 in the per-polynomial form.
+Each step takes the small-circuit path (expression programs on the tree
+evaluator, step 5 in the per-polynomial form) or the large-circuit path
+(steps 2-4 on the VM, step 5 as weighted column sums) by the size of its
+program, against the thresholds of ROUTE_DEFAULTS.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -35,6 +38,7 @@ from ..ops.goldilocks3 import GL3
 from ..utils.timer import TimerLog
 from . import device_core as core
 from . import plookup as plookup_mod
+from . import vm as vm_mod
 from .compiler import StarkInfo
 from .fri import fri_prove
 from .merkle_tree import MerkleTreeGL
@@ -44,6 +48,24 @@ from .transcript import Transcript
 HASH_SIZE = 4
 STEP_MAX_NODES = 250  # expression nodes per evaluation chunk
 
+# A step program above MERLIN_VM_MIN_NODES expression nodes runs on the VM;
+# step 5 takes the matrix forms above MERLIN_STEP5_MATRIX_MIN evaluation-map
+# entries.  Either name set in the environment overrides its default.  On
+# the card the large-circuit path took less time at every program size
+# measured (smoke and wide circuits, tools/route_times.py, PERF.md), so it
+# is taken always.  On the CPU the defaults are the reference's
+# (prover.py:121-188), so a CPU proof takes the route the reference takes.
+ROUTE_DEFAULTS = {
+    "cuda": {"MERLIN_VM_MIN_NODES": 0, "MERLIN_STEP5_MATRIX_MIN": 0},
+    "cpu": {"MERLIN_VM_MIN_NODES": 3000, "MERLIN_STEP5_MATRIX_MIN": 128},
+}
+
+
+def route_thresholds(device: torch.device) -> Dict[str, int]:
+    """The two thresholds a StarkProver on `device` reads at construction."""
+    defaults = ROUTE_DEFAULTS["cuda" if device.type == "cuda" else "cpu"]
+    return {k: int(os.environ.get(k, v)) for k, v in defaults.items()}
+
 
 def _challenges_gl3(ch: List[Optional[List[int]]], device) -> GL3:
     vals = np.zeros((8, 3), dtype=np.uint64)
@@ -51,6 +73,12 @@ def _challenges_gl3(ch: List[Optional[List[int]]], device) -> GL3:
         if c is not None:
             vals[i] = c
     return gl3.from_u64(vals, device)
+
+
+def program_nodes(prog) -> int:
+    """Distinct expression nodes of a step program (dest, expr) list."""
+    seen: set = set()
+    return sum(core._expr_new_nodes(e, seen) for _d, e in prog)
 
 
 class StarkProver:
@@ -85,14 +113,37 @@ class StarkProver:
         )
         self.zi = gl.from_u64(np.tile(zi_period, n), dev)
 
-        # node-count-bounded evaluation chunks: a fresh memo per chunk bounds
-        # the whole-domain intermediates alive at once
+        # A program above the VM threshold runs on the VM (stark/vm.py: one
+        # interpreter launch per program); one at or below it, on the tree
+        # evaluator in node-count-bounded chunks (a fresh memo per chunk
+        # bounds the whole-domain intermediates alive at once).
         max_nodes = STEP_MAX_NODES
-        self._step2_spans = core.plan_program_chunks(info.step2prev, max_nodes)
-        self._step3_spans = core.plan_program_chunks(info.step3prev, max_nodes)
-        self._step3_needs = core.chunk_pending_inputs(
-            info.step3prev, self._step3_spans)
-        self._step4_spans = core.step4_span_chunks(info, max_nodes)
+        limits = route_thresholds(dev)
+        vm_min = limits["MERLIN_VM_MIN_NODES"]
+        step5_matrix_min = limits["MERLIN_STEP5_MATRIX_MIN"]
+
+        self._vm2 = self._vm3 = self._vm4 = None
+        if program_nodes(info.step2prev) > vm_min:
+            self._vm2 = vm_mod.compile_program(info.step2prev, info, "n",
+                                               ["cm1_n", "const"])
+        else:
+            self._step2_spans = core.plan_program_chunks(info.step2prev,
+                                                         max_nodes)
+        if program_nodes(info.step3prev) > vm_min:
+            self._vm3 = vm_mod.compile_program_ordered(
+                info.step3prev, info, "n", ["cm1_n", "cm2_n", "const"])
+        else:
+            self._step3_spans = core.plan_program_chunks(info.step3prev,
+                                                         max_nodes)
+            self._step3_needs = core.chunk_pending_inputs(
+                info.step3prev, self._step3_spans)
+        if program_nodes(info.step42ns) > vm_min:
+            self._vm4 = vm_mod.compile_program(
+                [(("acc", 0), info.c_exp)], info, "ext",
+                ["cm1_2ns", "cm2_2ns", "cm3_2ns", "const"])
+        else:
+            self._step4_spans = core.step4_span_chunks(info, max_nodes)
+        self._step5_matrix = len(info.ev_map) > step5_matrix_min
 
     # ------------------------------------------------------------------
     def prove(self, cm1_trace: np.ndarray, publics: Optional[np.ndarray] = None,
@@ -138,10 +189,21 @@ class StarkProver:
             challenges[1] = transcript.get_field()
             ch_dev = _challenges_gl3(challenges, dev)
             exp_vals: Dict[int, object] = {}
-            for (e0, e1) in self._step2_spans:
-                exp_vals.update(core.step2_exprs_chunk(
-                    info, e0, e1, {"cm1_n": sections["cm1_n"]}, self.const_n,
-                    ch_dev, publics_dev, self.x_n))
+            if self._vm2 is not None:
+                out = core.step2_vm(info, self._vm2,
+                                    {"cm1_n": sections["cm1_n"]}, self.const_n,
+                                    ch_dev, publics_dev, self.x_n)
+                for eid, v in out.items():
+                    # dim-1 expressions ride the VM as GL3 with zero high
+                    # components; drop to GL so the h1/h2 sort keys stay
+                    # single-word
+                    exp_vals[eid] = v.c0 if info.exp_dims[eid] == 1 else v
+                del out
+            else:
+                for (e0, e1) in self._step2_spans:
+                    exp_vals.update(core.step2_exprs_chunk(
+                        info, e0, e1, {"cm1_n": sections["cm1_n"]},
+                        self.const_n, ch_dev, publics_dev, self.x_n))
             h_cols: Dict[int, object] = {}
             oks = []
             for pu in info.pu_ctx:
@@ -166,10 +228,18 @@ class StarkProver:
             sec3_in = {"cm1_n": sections["cm1_n"],
                        "cm2_n": sections["cm2_n"]}
             pending: Dict[int, object] = {}
-            for (e0, e1), need in zip(self._step3_spans, self._step3_needs):
-                pending.update(core.step3_exprs_chunk(
-                    info, e0, e1, sec3_in, self.const_n, ch_dev, publics_dev,
-                    self.x_n, {i: pending[i] for i in need}))
+            if self._vm3 is not None:
+                out = core.step3_vm(info, self._vm3, sec3_in, self.const_n,
+                                    ch_dev, publics_dev, self.x_n)
+                for pid, v in out.items():
+                    pending[pid] = v.c0 if info.cm_pols[pid].dim == 1 else v
+                del out
+            else:
+                for (e0, e1), need in zip(self._step3_spans,
+                                          self._step3_needs):
+                    pending.update(core.step3_exprs_chunk(
+                        info, e0, e1, sec3_in, self.const_n, ch_dev,
+                        publics_dev, self.x_n, {i: pending[i] for i in need}))
 
             def _as3(v):
                 return v if isinstance(v, GL3) else gl3.from_base(v)
@@ -201,13 +271,18 @@ class StarkProver:
                 k: sections[k]
                 for k in ("cm1_2ns", "cm2_2ns", "cm3_2ns")
             }
-            acc = gl3.zeros((info.n_ext,), dev)
-            for (k0, k1) in self._step4_spans:
-                acc = core.step4_chunk(info, k0, k1, ext_sections,
-                                       self.const_2ns, ch_dev, publics_dev,
-                                       self.x_2ns, self.zi, acc)
-            cm4 = core.step4_finalize(info, acc, self.zi)
-            del acc
+            if self._vm4 is not None:
+                cm4 = core.step4_vm(info, self._vm4, ext_sections,
+                                    self.const_2ns, ch_dev, publics_dev,
+                                    self.x_2ns, self.zi)
+            else:
+                acc = gl3.zeros((info.n_ext,), dev)
+                for (k0, k1) in self._step4_spans:
+                    acc = core.step4_chunk(info, k0, k1, ext_sections,
+                                           self.const_2ns, ch_dev, publics_dev,
+                                           self.x_2ns, self.zi, acc)
+                cm4 = core.step4_finalize(info, acc, self.zi)
+                del acc
             sections["cm4_2ns"] = cm4
             tree = MerkleTreeGL(cm4)
             tree.merkelize()
@@ -219,14 +294,18 @@ class StarkProver:
             challenges[7] = transcript.get_field()
             xi_dev = gl3.const(*challenges[7], device=dev)
             ext_sections["cm4_2ns"] = sections["cm4_2ns"]
-            evals = core.step5_evals(info, ext_sections, self.const_2ns, xi_dev)
+            step5_evals, step5_fri = (
+                (core.step5_evals_matrix, core.step5_fri_matrix)
+                if self._step5_matrix else
+                (core.step5_evals, core.step5_fri_pol))
+            evals = step5_evals(info, ext_sections, self.const_2ns, xi_dev)
             evals_np = gl3.to_u64(evals)
             for e in evals_np:
                 transcript.put([int(v) for v in e])
             challenges[5] = transcript.get_field()
             challenges[6] = transcript.get_field()
             ch_dev = _challenges_gl3(challenges, dev)
-            f_val = core.step5_fri_pol(
+            f_val = step5_fri(
                 info, ext_sections, self.const_2ns, ch_dev, publics_dev,
                 self.x_2ns, self.zi, evals, xi_dev,
             )

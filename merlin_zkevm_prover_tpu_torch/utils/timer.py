@@ -11,19 +11,32 @@ from .zklog import zklog
 
 
 class TimerLog:
-    def __init__(self, name: str = "", quiet: bool = False):
+    """Spans on the host clock.  With `peak_memory`, also the most bytes the
+    caching allocator held on the card during each span (`peaks`; the
+    allocator's peak is reset as a span starts)."""
+
+    def __init__(self, name: str = "", quiet: bool = False,
+                 peak_memory: bool = False):
         self.name = name
         self.quiet = quiet
+        self.peak_memory = peak_memory
         self.spans: List[tuple] = []  # (label, seconds)
+        self.peaks: Dict[str, int] = {}
 
     @contextlib.contextmanager
     def span(self, label: str):
+        if self.peak_memory:
+            import torch
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         try:
             yield
         finally:
             dt = time.time() - t0
             self.spans.append((label, dt))
+            if self.peak_memory:
+                self.peaks[label] = max(self.peaks.get(label, 0),
+                                        torch.cuda.max_memory_allocated())
             if not self.quiet:
                 zklog.info(f"{label}: {dt:.3f} s")
 

@@ -50,7 +50,9 @@ def test_port_has_every_expected_module():
                 "ops.ntt_cuda", "ops.cuda_build", "stark.prover",
                 "stark.verifier", "stark.fri", "stark.device_core",
                 "stark.evaluator", "stark.plookup", "stark.merkle_tree",
-                "models.smoke", "utils.timer", "convert"):
+                "models.smoke", "utils.timer", "convert", "stark.vm",
+                "ops.vm_cuda", "stark.checkpoint", "stark.pil_importer",
+                "stark.zkin"):
         assert f"merlin_zkevm_prover_tpu_torch.{sub}" in names
 
 
