@@ -26,8 +26,11 @@ and the exit code is non-zero unless every phase passed):
            the one-hot, impulse and Lagrange probes through ntt / intt /
            extend_pol; the VM interpreter on the smoke circuit's three step
            programs at the n_bits 17 proof's domains (sections as column
-           slices, edge words, p and 2^64 - 1 across their first rows) and
-           on a program whose destinations alias its operands
+           slices, edge words, p and 2^64 - 1 across their first rows), on a
+           6,000-instruction random program, on a program whose
+           destinations alias its operands, on the wide circuit's step-4
+           program at 2^18 rows, on a 400-register program whose registers
+           spill to device memory, and at n = 2^16 + 5 rows
   permute  K1's path: the batched permutation entry point
            (``ops.poseidon_gl.permute``) on a (12, 270600) state, the
            PoseidonG state machine's capacity at 2^23 rows; columns checked
@@ -172,52 +175,47 @@ def vm_programs(vm, info) -> dict:
                               ["cm1_2ns", "cm2_2ns", "cm3_2ns", "const"])}
 
 
-def random_vm_program(vm, rng, n_instr: int, n_regs: int, widths,
-                      n_consts: int) -> np.ndarray:
-    """A seeded (n_instr, 4) program of every opcode: a load into every
-    register first, then random instructions whose destinations may alias
-    their operands."""
-    def load(op, dst):
-        s = int(rng.integers(0, len(widths)))
-        dim = 3 if widths[s] >= 3 and rng.integers(0, 2) else 1
-        pos = int(rng.integers(0, widths[s] - (2 if dim == 3 else 0)))
-        return (op, s, (pos << 2) | dim, dst)
-
-    code = [load(vm.LOAD, r) for r in range(n_regs)]
-    while len(code) < n_instr:
-        op, dst = int(rng.integers(0, 11)), int(rng.integers(0, n_regs))
-        a, b = (int(v) for v in rng.integers(0, n_regs, 2))
-        c = int(rng.integers(0, n_consts))
-        if op in (vm.LOAD, vm.LOADR):
-            code.append(load(op, dst))
-        elif op == vm.LOADC:
-            code.append((op, c, 0, dst))
-        elif op in (vm.ADDC, vm.SUBC, vm.CSUBC, vm.MULC):
-            code.append((op, a, c, dst))
-        else:
-            code.append((op, a, 0 if op == vm.NEG else b, dst))
-    return np.array(code, dtype=np.int32)
-
-
 def vm_code_bound_ms(vm, code: np.ndarray, n: int, pre_words: int,
-                     n_out: int):
+                     n_out: int, pre_regs=(), typed: bool = True):
     """Bound of one run of `code` over n rows: the section words it loads
     (each column once, whatever its loads), its preloads and its outputs,
-    once each; its GL3 products, six 64-bit products a MUL or MULC."""
-    cols, n_mul = set(), 0
-    for op, a, b, _d in code.tolist():
+    once each; its products.  Typed (the count the function needs): which
+    registers hold base values follows from the code (a load with dim != 3
+    gives one, an ADD, SUB, MUL or NEG of base values gives one; registers
+    start at 0, preloads, constants and LOADC count as extension values),
+    and a MUL of two base values is one 64-bit product, a base value times
+    an extension value (MUL, MULC) three, two extension values six.  Not
+    typed: six for every MUL and MULC."""
+    cols, n_mul, base = set(), 0, {}
+    pre = set(pre_regs)
+    for op, a, b, d in code.tolist():
+        op &= 15
         if op in (vm.LOAD, vm.LOADR):
             cols |= {(a, (b >> 2) + j) for j in range(3 if b & 3 == 3 else 1)}
-        n_mul += op in (vm.MUL, vm.MULC)
+        ba = base.get(a, a not in pre)
+        bb = base.get(b, b not in pre)
+        if op == vm.MUL:
+            n_mul += 6 if not typed else 1 if ba and bb else 3 if ba or bb else 6
+        elif op == vm.MULC:
+            n_mul += 3 if typed and ba else 6
+        if op in (vm.ADD, vm.SUB, vm.MUL):
+            base[d] = ba and bb
+        elif op == vm.NEG:
+            base[d] = ba
+        elif op in (vm.LOAD, vm.LOADR):
+            base[d] = b & 3 != 3
+        else:
+            base[d] = False
     words = len(cols) + pre_words + 3 * n_out
-    return bound_ms(words * n * 8, 6 * n_mul * n)
+    return bound_ms(words * n * 8, n_mul * n)
 
 
-def vm_bound_ms(vm, prog, n: int):
+def vm_bound_ms(vm, prog, n: int, typed: bool = True):
     """Bound of one run of the compiled `prog` over n rows (x and Zi are
     base-field preloads, one word a row)."""
     pre_words = sum(1 if kind in ("x", "Zi") else 3 for _r, kind in prog.preload)
-    return vm_code_bound_ms(vm, prog.code, n, pre_words, len(prog.out_regs))
+    return vm_code_bound_ms(vm, prog.code, n, pre_words, len(prog.out_regs),
+                            [r for r, _k in prog.preload], typed)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -248,6 +246,8 @@ def main() -> int:
     from merlin_zkevm_prover_tpu_torch.stark import (
         MerkleTreeGL, StarkProof, StarkProver, VerifyError, compile_air, verify)
     from merlin_zkevm_prover_tpu_torch.stark import vm
+    from merlin_zkevm_prover_tpu_torch.models.wide import build_wide_air
+    from merlin_zkevm_prover_tpu_torch.tools import vm_times as vmt
     from merlin_zkevm_prover_tpu_torch.utils.timer import TimerLog
     from merlin_zkevm_prover_tpu_torch.utils.timer import device_time_ms as time_ms
 
@@ -645,6 +645,14 @@ def main() -> int:
                   roll_k=1 if step < 4 else 1 << info17.blowup_bits)
         return prog, n, secs, kw
 
+    def vm_args(step):
+        """vm_run's arguments for the step program, seeded (vm_case)."""
+        prog, n, secs, kw = vm_case(step)
+        return (*vm._launch_inputs(prog, secs, n, kw["challenges"],
+                                   kw["publics"], kw["x"], kw["zi"], None,
+                                   None, None),
+                list(prog.out_regs.values()), prog.n_regs, n, kw["roll_k"])
+
     for step in sorted(vm_progs):
         prog, n, secs, kw = vm_case(step)
         got = vm.run_program(prog, info17, secs, n, **kw)
@@ -657,8 +665,8 @@ def main() -> int:
     # a seeded random program of the length the default threshold sends to
     # the VM (the step-4 program of tests/test_torch_stark_large.py's wide
     # circuit has 6,350 instructions over 31 registers), at 2^18 rows
-    rand_code = random_vm_program(vm, np.random.default_rng(2027), 6000, 32,
-                                  (7, 2, 27, 6), 64)
+    rand_code = vmt.random_program(np.random.default_rng(2027), 6000, 32,
+                                   (7, 2, 27, 6), 64)
 
     def random_case():
         """vm_run's arguments for `rand_code` at 2^18 rows, seeded."""
@@ -687,7 +695,39 @@ def main() -> int:
     for j, (g, w_) in enumerate(zip(vm_cuda.vm_run(*alias),
                                     vm_cuda.vm_run_plain(*alias))):
         hold("vm_run", f"aliasing program, n = {n}, register {j}", g, w_)
+    # the wide circuit's step-4 program (its code depends on n_bits: the
+    # proof's, 17) at 2^18 rows, 190 columns of cm1_2ns read as a column
+    # slice with the edge words across the first rows; a program with more
+    # registers than a block's shared memory holds (the spilled registers
+    # run on the card, through FILL and SPILL); n not a multiple of the
+    # block's rows, LOADR wrapping across the last block
+    def vm_more_cases():
+        """The wide program (with its compiled program), the spill program
+        and the ragged one: vm_run's arguments, seeded."""
+        data = vmt.Data(dev, 2030)
+        wide = vmt.step4_case(build_wide_air(n_bits=17, device=dev)[0], data)
+        spill = vmt.random_case(data, 2000, 400, 1 << 16, 3, 2028)
+        ragged = vmt.random_case(data, 1000, 24, (1 << 16) + 5, 37, 2029)
+        return wide, spill, ragged
+
+    (wide_args, wide_prog), spill_args, ragged_args = vm_more_cases()
+    vm_plans = {}
+    for what, args_ in (("wide program", wide_args),
+                        ("spill program", spill_args),
+                        ("ragged program", ragged_args)):
+        vm_plans[what] = vm_cuda._vm_fields(*args_)["plan"]
+        for j, (g, w_) in enumerate(zip(vm_cuda.vm_run(*args_),
+                                        vm_cuda.vm_run_plain(*args_))):
+            hold("vm_run", f"{what} ({len(args_[0])} instructions, "
+                 f"{args_[5]} registers, n = {args_[6]}), output {j}", g, w_)
+    if vm_plans["spill program"]["slots_on"] >= vm_plans["spill program"]["words"]:
+        raise AssertionError("the spill program's registers all fit on chip")
+    if args_[6] % vm_plans["ragged program"]["rows"] == 0:
+        raise AssertionError("the ragged program's n is a multiple of a "
+                             "block's rows")
+    del wide_args, spill_args, ragged_args, args_
     emit({"phase": "kernels_check", "mismatches": 0, "cases": checks,
+          "vm_plans": vm_plans,
           "linear_hash_2^18x665_ms": ms_lh665,
           "linear_hash_2^18x665_bound_ms": call_bound_ms(
               "linear_hash", {"rows": x665})[0]})
@@ -1143,11 +1183,8 @@ def main() -> int:
     # 2^18 rows is the entry's shape), launched once each per proof
     vm_times = {}
     for step in sorted(vm_progs):
-        prog, n, secs, kw = vm_case(step)
-        args = (*vm._launch_inputs(prog, secs, n, kw["challenges"],
-                                   kw["publics"], kw["x"], kw["zi"], None,
-                                   None, None),
-                list(prog.out_regs.values()), prog.n_regs, n, kw["roll_k"])
+        prog, n = vm_progs[step], info17.n if step < 4 else info17.n_ext
+        args = vm_args(step)
         f = vm_cuda._vm_fields(*args)
         cuda_build.check(vm_cuda._launch(f), "vm_run launch")
         vm_times[step] = (time_ms(lambda: vm_cuda._launch(f), 7),
@@ -1155,8 +1192,34 @@ def main() -> int:
                           vm_bound_ms(vm, prog, n), n)
     f = vm_cuda._vm_fields(*random_case())
     rand_ms = time_ms(lambda: vm_cuda._launch(f), 5)
-    rand_bound = vm_code_bound_ms(vm, rand_code, 1 << 18, 3, 32)
-    del f, args, secs, kw
+    rand_bound = vm_code_bound_ms(vm, rand_code, 1 << 18, 3, 32, [0])
+    rand_old = vm_code_bound_ms(vm, rand_code, 1 << 18, 3, 32, [0], typed=False)
+
+    def vm_extra(args_, prog_=None):
+        """Time, plan and bounds (typed, and the untyped count of six
+        products a MUL) of one more program, from its kernels_check
+        arguments."""
+        f_ = vm_cuda._vm_fields(*args_)
+        ms_ = time_ms(lambda: vm_cuda._launch(f_), 5)
+        n_ = args_[6]
+        if prog_ is not None:
+            b_, old_ = vm_bound_ms(vm, prog_, n_), vm_bound_ms(vm, prog_, n_,
+                                                               typed=False)
+        else:
+            pre_ = [r for r, _v in args_[3]]
+            b_, old_ = (vm_code_bound_ms(vm, args_[0], n_, 3 * len(pre_),
+                                         len(args_[4]), pre_, typed)
+                        for typed in (True, False))
+        return {"instructions": len(args_[0]), "registers": args_[5],
+                "rows": n_, "ms": ms_, "bound_ms": b_[0], "bound_by": b_[1],
+                "untyped_bound_ms": old_[0], "untyped_bound_by": old_[1],
+                "words": f_["plan"]["words"], "words_on_chip":
+                f_["plan"]["slots_on"], "block_rows": f_["plan"]["rows"]}
+
+    (wide_args, wide_prog), spill_args, _ragged = vm_more_cases()
+    wide_row = vm_extra(wide_args, wide_prog)
+    spill_row = vm_extra(spill_args)
+    del f, args, wide_args, spill_args, _ragged
     ms4, plain4, bound4, n4 = vm_times[4]
     prog4 = vm_progs[4]
     entry("vm_run", "stark/vm.py:532",
@@ -1165,6 +1228,7 @@ def main() -> int:
           pallas_kernel=False, note="the reference runs its VM as one "
           "lax.scan; no TPU kernel stands behind this one",
           shape_is="[instructions, registers, rows] of the step-4 program",
+          untyped_bound_ms=vm_bound_ms(vm, prog4, n4, typed=False)[0],
           per_program={str(k): {"instructions": len(vm_progs[k].code),
                                 "registers": vm_progs[k].n_regs, "rows": t[3],
                                 "ms": t[0], "plain_ms": t[1],
@@ -1173,7 +1237,10 @@ def main() -> int:
           random_program={"instructions": 6000, "registers": 32,
                           "rows": 1 << 18, "ms": rand_ms,
                           "bound_ms": rand_bound[0],
-                          "bound_by": rand_bound[1]},
+                          "bound_by": rand_bound[1],
+                          "untyped_bound_ms": rand_old[0],
+                          "untyped_bound_by": rand_old[1]},
+          wide_program=wide_row, spill_program=spill_row,
           per_proof_ms=sum(t[0] for t in vm_times.values()),
           per_proof_bound_ms=sum(t[2][0] for t in vm_times.values()))
 

@@ -182,3 +182,9 @@ __device__ __forceinline__ gl3_t gl3_mul(gl3_t a, gl3_t b) {
             gl_sub(gl_sub(gl_sub(gl_add(A, C), E), E), D),
             gl_sub(B, G)};
 }
+
+// A base value times an extension value: three products, the Karatsuba form
+// above with a = (s, 0, 0).
+__device__ __forceinline__ gl3_t gl3_scale(uint64_t s, gl3_t b) {
+    return {gl_mul(s, b.c0), gl_mul(s, b.c1), gl_mul(s, b.c2)};
+}

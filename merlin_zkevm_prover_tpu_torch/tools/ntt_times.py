@@ -56,20 +56,20 @@ SPLIT_PREFILL_CYCLES = 40_000_000
 WIDTHS = (1, 2, 3, 7, 25, 27, 64)
 
 
-def _variant(defines: list) -> Path:
-    """A copy of csrc/ with each NAME=VALUE #define rewritten in ntt_gl.cu."""
+def _variant(defines: list, source: str = "ntt_gl.cu") -> Path:
+    """A copy of csrc/ with each NAME=VALUE #define rewritten in `source`."""
     tag = "_".join(d.replace("=", "") for d in defines)
     dst = cuda_build.BUILD_DIR / f"csrc_{tag}"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(cuda_build.CSRC, dst)
-    src = dst / "ntt_gl.cu"
+    src = dst / source
     text = src.read_text()
     for d in defines:
         name, value = d.split("=", 1)
         text, n = re.subn(rf"^#define {name} .*$", f"#define {name} {value}",
                           text, flags=re.M)
         if n != 1:
-            raise ValueError(f"no single #define {name} in ntt_gl.cu")
+            raise ValueError(f"no single #define {name} in {source}")
     src.write_text(text)
     return dst
 

@@ -31,6 +31,7 @@ from merlin_zkevm_prover_tpu_torch.ops import vm_cuda  # noqa: E402
 from merlin_zkevm_prover_tpu_torch.stark import AIR, compile_air  # noqa: E402
 from merlin_zkevm_prover_tpu_torch.stark import device_core as core  # noqa: E402
 from merlin_zkevm_prover_tpu_torch.stark import vm  # noqa: E402
+from merlin_zkevm_prover_tpu_torch.tools.vm_times import random_program  # noqa: E402
 
 CPU = "cpu"
 N_BITS = 5
@@ -251,15 +252,28 @@ def _words(t):
 
 
 def _model_launch(f):
-    """vm_run_kernel on the fields `f`, thread by thread, in python ints;
-    writes the register file as the kernel does."""
-    n, k = f["n"], f["roll_k"]
-    code = f["code"].tolist()
+    """vm_run_kernel on the fields `f`, block by block, thread by thread and
+    row by row of each thread, in python ints: the shared register file
+    (word w of block row t at w * rows + t; the code's register operands
+    are such offsets), the spilled words ((w - slots_on) * n_pad + row,
+    moved by FILL and SPILL) and the flags of the typed code; writes the
+    output tensor as the kernel does.  A word the kernel would read before
+    writing it is None and fails the run."""
+    plan, n, k = f["plan"], f["n"], f["roll_k"]
+    rows, nt = plan["rows"], plan["threads"]
+    on, n_pad, rpt = plan["slots_on"], plan["n_pad"], plan["rows"] // plan["threads"]
+    prog, ni = f["code"].tolist(), f["n_instr"]
+    code = [prog[4 * i:4 * i + 4] for i in range(ni)]
+    assert prog[4 * ni:4 * ni + 4] == [0] * 4          # the prefetched row
+    outs = [prog[4 * (ni + 1) + 2 * o:4 * (ni + 1) + 2 * o + 2]
+            for o in range(f["n_out"])]
     tab = [tuple(v & _M64 for v in row) for row in f["table"].tolist()]
     secs = [(_words(s), s.storage_offset(), rs, cs) for s, rs, cs in f["secs"]]
-    pre = [(r, [(_words(t), t.storage_offset(), st) for t, st in comps])
-           for r, comps in f["pre"]]
-    regs = [[[0] * n for _ in range(3)] for _ in range(f["n_regs"])]
+    pre = [(w, [(_words(t), t.storage_offset(), st) for t, st in comps])
+           for w, comps in f["pre"]]
+    spill = [None] * ((plan["words"] - on) * n_pad)
+    assert tuple(f["spill"].shape) == (plan["words"] - on, n_pad)
+    out = [[[None] * n for _ in range(3)] for _ in outs]
 
     def canon(x):
         return x - P if x >= P else x
@@ -270,38 +284,93 @@ def _model_launch(f):
     def sub(a, b):
         return tuple((x - y) % P for x, y in zip(a, b))
 
-    for i in range(n):
-        r = {j: (0, 0, 0) for j in range(f["n_regs"])}
-        for reg, comps in pre:
-            r[reg] = tuple(canon(w[o + i * st]) for w, o, st in comps)
-        i_rot = i + k - n if i + k >= n else i + k
-        for op, a, b, dst in code:
-            if op in (vm.ADD, vm.SUB, vm.MUL):
-                v = {vm.ADD: add, vm.SUB: sub, vm.MUL: gl3_mul}[op](r[a], r[b])
-            elif op == vm.ADDC:
-                v = add(r[a], tab[b])
-            elif op == vm.SUBC:
-                v = sub(r[a], tab[b])
-            elif op == vm.CSUBC:
-                v = sub(tab[b], r[a])
-            elif op == vm.MULC:
-                v = gl3_mul(r[a], tab[b])
-            elif op == vm.NEG:
-                v = sub((0, 0, 0), r[a])
-            elif op in (vm.LOAD, vm.LOADR):
-                w, o, rs, cs = secs[a]
-                base = o + (i_rot if op == vm.LOADR else i) * rs + (b >> 2) * cs
-                v = (tuple(canon(w[base + j * cs]) for j in range(3))
-                     if b & 3 == 3 else (canon(w[base]), 0, 0))
-            else:  # LOADC
-                v = tab[a]
-            r[dst] = v
-        for j in range(f["n_regs"]):
-            for c in range(3):
-                regs[j][c][i] = r[j][c]
-    for j in range(f["n_regs"]):
+    def mul(a, b, ab, bb):
+        if ab and bb:
+            return (a[0] * b[0] % P, 0, 0)
+        if ab or bb:
+            s, v = (a[0], b) if ab else (b[0], a)
+            return tuple(s * x % P for x in v)
+        return gl3_mul(a, b)
+
+    for blk in range(plan["blocks"]):
+        row0 = blk * rows
+        smem = [None] * (on * rows)
+        for tid in range(nt):
+            for j in range(rpt):
+                t = tid + j * nt
+                g = row0 + t
+                ie = g % n
+                ir = (ie + k) % n
+
+                def word(w):                 # prologue and epilogue
+                    return ("s", w * rows + t) if w < on else \
+                        ("g", (w - on) * n_pad + g)
+
+                def put(w, v):
+                    where, i = word(w)
+                    (smem if where == "s" else spill)[i] = v
+
+                def get(w):
+                    where, i = word(w)
+                    return (smem if where == "s" else spill)[i]
+
+                def rd(o, base):             # the loop: shared offsets
+                    assert o + (1 if base else 2 * rows + 1) <= on * rows
+                    return (smem[o + t], 0, 0) if base else \
+                        (smem[o + t], smem[o + rows + t], smem[o + 2 * rows + t])
+
+                for w in range(plan["words"]):
+                    put(w, 0)
+                for w, comps in pre:
+                    for c, (words, o, st_) in enumerate(comps):
+                        put(w + c, canon(words[o + ie * st_]))
+                for fw, x, y, d in code:
+                    op, ab = fw & vm_cuda.OP_MASK, fw & vm_cuda.A_BASE
+                    bb, db = fw & vm_cuda.B_BASE, fw & vm_cuda.D_BASE
+                    if op in (vm.ADD, vm.SUB):
+                        u, q = rd(x, ab or db), rd(y, bb or db)
+                        v = (add if op == vm.ADD else sub)(u, q)
+                    elif op == vm.MUL:
+                        v = mul(rd(x, ab), rd(y, bb), ab, bb)
+                    elif op == vm.ADDC:
+                        v = add(rd(x, ab or db), tab[y])
+                    elif op == vm.SUBC:
+                        v = sub(rd(x, ab or db), tab[y])
+                    elif op == vm.CSUBC:
+                        v = sub(tab[y], rd(x, ab or db))
+                    elif op == vm.MULC:
+                        v = mul(rd(x, ab), tab[y], ab, False)
+                    elif op == vm.NEG:
+                        v = sub((0, 0, 0), rd(x, ab or db))
+                    elif op in (vm.LOAD, vm.LOADR):
+                        words, o, rs, cs = secs[x]
+                        base = o + (ir if op == vm.LOADR else ie) * rs + \
+                            (y >> 2) * cs
+                        v = tuple(canon(words[base + c * cs]) if c == 0
+                                  or y & 3 == 3 else 0 for c in range(3))
+                    elif op == vm.LOADC:
+                        v = tab[x]
+                    elif op == vm_cuda.FILL:
+                        v = tuple(spill[(x + c) * n_pad + g] if c == 0 or not db
+                                  else 0 for c in range(3))
+                    else:                    # SPILL
+                        assert op == vm_cuda.SPILL
+                        u = rd(x, db)
+                        for c in range(1 if db else 3):
+                            spill[(d + c) * n_pad + g] = u[c]
+                        continue
+                    assert d + (1 if db else 2 * rows + 1) <= on * rows
+                    smem[d + t] = v[0]
+                    if not db:
+                        smem[d + rows + t] = v[1]
+                        smem[d + 2 * rows + t] = v[2]
+                if g < n:
+                    for o, (w, base) in enumerate(outs):
+                        for c in range(3):
+                            out[o][c][g] = 0 if c and base else get(w + c)
+    for o in range(len(outs)):
         for c in range(3):
-            f["regs"][j, c] = gl.from_u64(regs[j][c], CPU)
+            f["out"][o, c] = gl.from_u64(out[o][c], CPU)
 
 
 def _inplace_sections(info, names, n, seed):
@@ -415,3 +484,162 @@ def test_wrapper_counts_no_launch_on_the_cpu():
     out = vm_cuda.vm_run(code, gl.ones((1, 3), CPU), [], [], [0], 1, 4, 1)
     assert gl.to_u64(out[0]).tolist() == [[1] * 4] * 3
     assert vm_cuda.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# The wrapper's rewrite (typing, slots) and launch plan
+# ---------------------------------------------------------------------------
+
+
+def _random_args(seed, n_instr, n_regs, n, roll_k):
+    """vm_run's arguments for a seeded random program over n rows: column
+    slices with edge words and words in [p, 2^64) across their first rows,
+    one preload."""
+    rng = np.random.default_rng(seed)
+    widths = (7, 2, 5)
+    code = random_program(rng, n_instr, n_regs, widths, 4)
+    secs = []
+    for w in widths:
+        a = rng.integers(0, 1 << 64, (n, w + 3), dtype=np.uint64)
+        a[: min(n, 8)] = np.resize(np.array(EDGE + [P, _M64], dtype=np.uint64),
+                                   (min(n, 8), w + 3))
+        secs.append(gl.from_u64(a, CPU)[:, 1:1 + w])
+    table = gl.from_u64(rng.integers(0, P, (4, 3), dtype=np.uint64), CPU)
+    pre = gl3.from_u64(rng.integers(0, 1 << 64, (n, 3), dtype=np.uint64), CPU)
+    return (code, table, secs, [(n_regs - 1, pre)], list(range(n_regs)),
+            n_regs, n, roll_k)
+
+
+@pytest.mark.parametrize("case", ["spill", "spill_all", "ragged"])
+def test_kernel_model_spills_and_ragged_n(case):
+    """Registers past a small on-chip budget (spilled words in device
+    memory, brought in and out by FILL and SPILL in the same kernel), and n
+    not a multiple of the block's rows with LOADR wrapping across the last
+    block."""
+    rows_min = 32 * vm_cuda._define("VM_ROWS_PER_THREAD")
+    n = 2 * rows_min + 5
+    args = _random_args(90 + len(case), 120, 12, n, 7)
+    budget = {"spill": 8 * rows_min * 16,
+              "spill_all": 8 * rows_min * vm_cuda.TEMP_WORDS}.get(
+        case, vm_cuda.SMEM_BLOCK_MAX)
+    f = vm_cuda._vm_fields(*args, budget=budget)
+    plan = f["plan"]
+    assert plan["blocks"] * plan["rows"] > n
+    if case.startswith("spill"):
+        assert plan["slots_on"] < plan["words"]
+        assert (plan["regs_on"] == 0) == (case == "spill_all")
+        ops = f["code"][:4 * f["n_instr"]].view(-1, 4)[:, 0] & vm_cuda.OP_MASK
+        assert (ops == vm_cuda.FILL).any() and (ops == vm_cuda.SPILL).any()
+    else:
+        assert plan["slots_on"] == plan["words"]
+    _model_launch(f)
+    for w, g in zip(vm_cuda.vm_run_plain(*args), vm_cuda._outputs(f)):
+        assert np.array_equal(gl.to_u64(w), gl.to_u64(g))
+
+
+@pytest.mark.parametrize("widths,n,budget", [
+    ([1, 1], 8, vm_cuda.SMEM_BLOCK_MAX),
+    ([3] * 6, 1 << 18, vm_cuda.SMEM_BLOCK_MAX),
+    ([1] * 29 + [3], 1 << 18, vm_cuda.SMEM_BLOCK_MAX),
+    ([3] * 32, (1 << 16) + 5, vm_cuda.SMEM_BLOCK_MAX),
+    ([3] * 400, 1 << 16, vm_cuda.SMEM_BLOCK_MAX),
+    ([1, 3] * 50, 1000, 8 * 64 * 20),
+    ([3] * 5, 77, vm_cuda.SMEM_BLOCK_MAX),
+])
+def test_vm_plan_covers_rows_within_shared_memory(widths, n, budget):
+    """Every row is covered exactly once by (block, thread, row of the
+    thread); the shared bytes stay within a block's 232,448 and the
+    budget; every register is on chip or spilled, never both."""
+    rpt = vm_cuda._define("VM_ROWS_PER_THREAD")
+    for budget_ in (budget, 8 * 32 * rpt * 40):
+        plan = vm_cuda._vm_plan(widths, n, budget_)
+        rows, nt = plan["rows"], plan["threads"]
+        assert rows == nt * rpt and nt % 32 == 0
+        assert nt <= vm_cuda._define("VM_MAX_THREADS")
+        assert plan["n_pad"] == plan["blocks"] * rows
+        assert (plan["blocks"] - 1) * rows < n <= plan["n_pad"]
+        if n < 4096:
+            seen = sorted(b * rows + t + j * nt for b in range(plan["blocks"])
+                          for t in range(nt) for j in range(rpt))
+            assert seen == list(range(plan["n_pad"]))
+        assert plan["smem_bytes"] <= min(232_448, budget_)
+        spills = plan["regs_on"] < len(widths)
+        assert plan["slots_on"] == sum(widths[:plan["regs_on"]]) + (
+            vm_cuda.TEMP_WORDS if spills else 0)
+        assert plan["words"] == sum(widths) + (vm_cuda.TEMP_WORDS if spills
+                                               else 0)
+        assert plan["smem_bytes"] == 8 * plan["slots_on"] * rows
+
+        def cap(r):     # room for WARPS_PER_SM warps an SM of 233,472 bytes
+            blocks = max(1, vm_cuda.WARPS_PER_SM * 32 * rpt // r)
+            return min(budget_, 232_448, 233_472 // blocks - 1024)
+        assert plan["smem_bytes"] <= cap(rows)
+        if 8 * sum(widths) * 32 * rpt <= cap(32 * rpt):
+            assert not spills
+
+
+def test_vm_fields_allocates_outputs_only():
+    """No (R, 3, n) register file: the outputs, and spilled words only
+    when the file does not fit on chip."""
+    n = 64
+    args = _random_args(95, 60, 10, n, 3)
+    f = vm_cuda._vm_fields(*args)
+    tensors = {k: v for k, v in f.items() if isinstance(v, torch.Tensor)}
+    assert tuple(f["out"].shape) == (10, 3, n)
+    assert f["spill"].numel() == 0
+    assert set(tensors) == {"code", "table", "out", "spill"}
+    assert f["code"].numel() == 4 * (60 + 1) + 2 * 10
+    f = vm_cuda._vm_fields(*args, budget=8 * 64 * 12)
+    plan = f["plan"]
+    assert 0 < plan["slots_on"] < plan["words"]
+    assert tuple(f["spill"].shape) == (plan["words"] - plan["slots_on"],
+                                       plan["n_pad"])
+
+
+def _rewrite_case(name, step):
+    """A step program with its vm_run arguments at a small size, the
+    sections column slices with edge words."""
+    if name == "smoke":
+        info = compile_air(build_smoke_air(n_bits=4, seed=42)[0], **SETTINGS)
+    else:
+        from merlin_zkevm_prover_tpu_torch.models.wide import build_wide_air
+        info = compile_air(build_wide_air(n_bits=3)[0], **SETTINGS)
+    prog = STEPS[step](vm, info)
+    n = info.n if step < 4 else info.n_ext
+    secs = _inplace_sections(info, prog.sections, n, 100 + step)
+    rng = np.random.default_rng(110 + step)
+    ch = gl3.from_u64(rng.integers(0, P, (8, 3), dtype=np.uint64), CPU)
+    pub = gl.from_u64(rng.integers(0, P, (max(info.n_publics, 1),),
+                                   dtype=np.uint64), CPU)
+    x = gl.from_u64(rng.integers(0, 1 << 64, (n,), dtype=np.uint64), CPU)
+    zi = gl.from_u64(rng.integers(0, P, (n,), dtype=np.uint64), CPU)
+    code, table, sections, preloads = vm._launch_inputs(
+        prog, secs, n, ch, pub, x, zi, None, None, None)
+    return prog, (code, table, sections, preloads,
+                  list(prog.out_regs.values()), prog.n_regs, n,
+                  1 if step < 4 else 1 << info.blowup_bits)
+
+
+@pytest.mark.parametrize("name,step", [("smoke", 2), ("smoke", 3),
+                                       ("smoke", 4), ("wide", 4)])
+def test_rewritten_code_equals_original(name, step):
+    """The code the kernel is launched with (typed, over slots) through
+    the plain interpreter equals the program itself: a wrong base flag
+    would read or leave zeros where a component is not."""
+    prog, args = _rewrite_case(name, step)
+    code, table, sections, preloads, out_regs, n_regs, n, roll_k = args
+    lay = vm_cuda._layout(np.ascontiguousarray(code), n_regs,
+                          [r for r, _ in preloads], out_regs)
+    got = vm_cuda.vm_run_plain(
+        lay["code"], table, sections,
+        [(s, v) for s, (_r, v) in zip(lay["pre"], preloads)],
+        [s for s, _b in lay["out"]], len(lay["widths"]), n, roll_k)
+    for w, g in zip(vm_cuda.vm_run_plain(*args), got):
+        assert np.array_equal(gl.to_u64(w), gl.to_u64(g))
+    op = lay["code"][:, 0]
+    if name == "wide":
+        # the wide circuit's products are of two base columns: one word a
+        # register, one 64-bit product a MUL
+        mul = (op & vm_cuda.OP_MASK) == vm.MUL
+        assert ((op[mul] & vm_cuda.D_BASE) != 0).sum() >= 0.9 * mul.sum()
+        assert sum(lay["widths"]) < 2 * n_regs
