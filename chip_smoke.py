@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``merlin_zkevm_prover_tpu_torch/csrc`` and runs
-six phases, each of which raises on failure (nothing falls back to the CPU,
+seven phases, each of which raises on failure (nothing falls back to the CPU,
 and the exit code is non-zero unless every phase passed):
 
   device   the card's name and power limit, versions, the kernel build
@@ -24,7 +24,10 @@ and the exit code is non-zero unless every phase passed):
            reading through the mid gather (into a column slice) at n_bits
            10 to 18 and c = 1, 3, 25, 64; blocked LDEs of 67 to 131 columns;
            the one-hot, impulse and Lagrange probes through ntt / intt /
-           extend_pol; the VM interpreter on the smoke circuit's three step
+           extend_pol, and on 64-column blocks (EXTEND_BLOCK_COLS) at the
+           recursion stages' sizes: ntt and intt at n_bits 20 and 21,
+           extend_pol_blocked 19 -> 20 and 20 -> 21 (the four-step route
+           over ntt_short); the VM interpreter on the smoke circuit's three step
            programs at the n_bits 17 proof's domains (sections as column
            slices, edge words, p and 2^64 - 1 across their first rows), on a
            6,000-instruction random program, on a program whose
@@ -58,18 +61,36 @@ and the exit code is non-zero unless every phase passed):
            the tree evaluator, step 5 per entry); each must equal the
            ``prove`` phase's proof in every field and verify, the first
            reject a changed public; each span's peak of allocated bytes
+  recursion the recursion chain (recursion/recursive.py), each stage a
+           plonk12c STARK proven through the kernels on the large-circuit
+           path: the Poseidon-preimage plonk12c proof and recursive1 over the
+           golden n_bits 5 proof equal the JAX golden files
+           (tests/data/torch_plonk12c_proof.json, torch_recursive1_proof.json);
+           then, at the production settings (n_queries 32, fri_fold_bits 3,
+           final_bits 4), recursive1 over the smoke circuit's n_bits 17
+           proof with the same FRI settings, again by the witness-refill path
+           over a second proof of the same StarkProver (another witness), and
+           recursive2 over the two; each verifies, recursive2's publics bind
+           both children and the recursive1 const root, a changed public is
+           rejected.  One line a
+           stage: layout, circuit, host seconds of each piece, spans, peak
+           bytes, launches; then one 64-column block of recursive2's LDE
+           under torch.profiler (the four-step route: K4 and the glue)
 
-Each path (permute, each golden proof, prove, prove_vm) is driven with
-every launch counter set to 0 just before it and read just after.
+Each path (permute, each golden proof, prove, prove_vm, each recursion
+stage) is driven with every launch counter set to 0 just before it and read
+just after.
 
 Output: one JSON object per line.  An early line (phase
 ``poseidon_build``) gives each Poseidon kernel's registers and spills from
 the build log; the ``prove`` line gives the node-hash launches per kernel
 variant.  The line before the last lists every
 kernel (K1 to K6, and vm_run, which has no Pallas counterpart) with its
-launches on its path, its error against the
-plain version, its time, the plain version's time and the card's bound for
-the same work.  The last line is
+launches on its path, its launches in each recursion stage
+(``recursion_launches``), its error against the plain version, its time,
+the plain version's time and the card's bound for the same work (K2 to
+K5 also summed over recursive2's own launches, K4 at its largest
+recursion shape).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It imports no JAX.
 """
@@ -247,6 +268,9 @@ def main() -> int:
         MerkleTreeGL, StarkProof, StarkProver, VerifyError, compile_air, verify)
     from merlin_zkevm_prover_tpu_torch.stark import vm
     from merlin_zkevm_prover_tpu_torch.models.wide import build_wide_air
+    from merlin_zkevm_prover_tpu_torch.recursion import recursive as rec
+    from merlin_zkevm_prover_tpu_torch.recursion.gates import Circuit
+    from merlin_zkevm_prover_tpu_torch.recursion.plonk import circuit_to_air
     from merlin_zkevm_prover_tpu_torch.tools import vm_times as vmt
     from merlin_zkevm_prover_tpu_torch.utils.timer import TimerLog
     from merlin_zkevm_prover_tpu_torch.utils.timer import device_time_ms as time_ms
@@ -621,6 +645,35 @@ def main() -> int:
     x = rnd(1 << 18, 1)
     hold("ntt_short", "extend_pol n_bits = 18 -> 19", ntt.extend_pol(x, 18, 19),
          ntt.extend_pol_plain(x, 18, 19))
+    # the recursion stages' LDEs (2^19 .. 2^21 rows) on the same route, on a
+    # block of EXTEND_BLOCK_COLS columns as extend_pol_blocked feeds it, the
+    # edge words across the first rows, and the probes in columns 0 and 1
+    for nb in (19, 20, 21):
+        n = 1 << nb
+        x = edge_rows(rnd(n, ntt.EXTEND_BLOCK_COLS))
+        x[:, 0] = 0
+        x[0, 0] = 1                  # one-hot
+        x[:, 1] = 0
+        x[0, 1] = 7                  # impulse
+        if nb >= 20:
+            f, i_ = ntt.ntt(x), ntt.intt(x)
+            hold("ntt_short", f"ntt n_bits = {nb}, {x.shape[1]} columns", f,
+                 ntt.ntt_plain(x))
+            hold("ntt_short", f"intt n_bits = {nb}, {x.shape[1]} columns", i_,
+                 ntt.intt_plain(x))
+            if not bool((i_[:, 0] == gl.const(pow(n, P - 2, P), device=dev)).all()):
+                raise AssertionError(f"one-hot INTT probe failed at n_bits {nb}")
+            if not bool((f[:, 1] == 7).all()):
+                raise AssertionError(f"impulse NTT probe failed at n_bits {nb}")
+        if nb < 21:
+            e = ntt.extend_pol_blocked(x, nb, nb + 1)
+            hold("ntt_short", f"extend_pol_blocked n_bits = {nb} -> {nb + 1}, "
+                 f"{x.shape[1]} columns", e, ntt.extend_pol_plain(x, nb, nb + 1))
+            col = gl.to_u64(e[:, 0])
+            for j in (0, 1, 3, 191, 192, 193, 2 * n - 1):
+                if int(col[j]) != lagrange0(n, SHIFT * pow(gl.w(nb + 1), j, P) % P):
+                    raise AssertionError(f"Lagrange probe failed, n_bits {nb} "
+                                         f"row {j}")
     # the VM interpreter: the smoke circuit's three step programs at the
     # n_bits = 17 proof's domains (2^17 rows for steps 2 and 3, 2^18 for step
     # 4, whose loads rotate by 2^blowup_bits rows and wrap at the end), the
@@ -630,19 +683,19 @@ def main() -> int:
     info17 = compile_air(air17, n_queries=32)
     vm_progs = vm_programs(vm, info17)
 
-    def vm_case(step):
+    def vm_case(step, progs=vm_progs, info_=info17):
         """The step program, its row count, its sections and its other
         run_program arguments, seeded."""
-        prog = vm_progs[step]
-        n = info17.n if step < 4 else info17.n_ext
+        prog = progs[step]
+        n = info_.n if step < 4 else info_.n_ext
         secs = {}
         for name in prog.sections:
-            w = info17.n_constants if name == "const" else \
-                info17.section_widths[name.replace("_2ns", "_n")]
+            w = info_.n_constants if name == "const" else \
+                info_.section_widths[name.replace("_2ns", "_n")]
             secs[name] = edge_rows(rnd(n, w + 5))[:, 2:2 + w]
         kw = dict(challenges=GL3(rnd(8), rnd(8), rnd(8)),
-                  publics=rnd(info17.n_publics), x=rnd(n), zi=rnd(n),
-                  roll_k=1 if step < 4 else 1 << info17.blowup_bits)
+                  publics=rnd(info_.n_publics), x=rnd(n), zi=rnd(n),
+                  roll_k=1 if step < 4 else 1 << info_.blowup_bits)
         return prog, n, secs, kw
 
     def vm_args(step):
@@ -813,12 +866,14 @@ def main() -> int:
         del log
     emit({"phase": "golden", "proofs": golden_out})
 
-    def lde_block_split(blk: torch.Tensor, nb: int) -> dict:
+    def lde_block_split(blk: torch.Tensor, nb: int, pipeline: bool = True) -> dict:
         """One 64-column block of the LDE, read from and written into wide
         matrices as extend_pol_blocked does: every device kernel it runs
-        (torch.profiler), which must be the four block kernels and nothing
-        else, and its device time (CUDA events, the card kept busy ahead of
-        it) beside theirs."""
+        (torch.profiler), which on the pipeline's sizes must be the four
+        block kernels and nothing else, and its device time (CUDA events,
+        the card kept busy ahead of it) beside theirs.  Above them
+        (`pipeline` off) the block kernels are K4's launches and the other
+        kernels the four-step recursion's plain PyTorch glue."""
         from torch.profiler import ProfilerActivity, profile
 
         out = torch.empty((1 << (nb + 1), blk.shape[1] + 3), dtype=torch.int64,
@@ -844,15 +899,18 @@ def main() -> int:
         foreign = [k["name"] for k in kernels
                    if not k["name"].startswith(("void ntt_tile_kernel",
                                                 "void ntt_reg_kernel"))]
-        if n_kernels != 4 or foreign:
+        if pipeline and (n_kernels != 4 or foreign):
             raise AssertionError(f"one LDE block ran {n_kernels} device "
                                  f"kernels, not the four block kernels: "
                                  f"{kernels}")
-        kernels_ms = sum(k["device_ms"] for k in kernels)
+        kernels_ms = sum(k["device_ms"] for k in kernels
+                         if k["name"] not in foreign)
+        glue_ms = sum(k["device_ms"] for k in kernels if k["name"] in foreign)
         block_ms = time_ms(one_block, 7)
         return {"shape": [1 << nb, blk.shape[1]], "kernels": kernels,
                 "device_kernels": n_kernels, "kernels_ms": kernels_ms,
-                "block_ms": block_ms, "between_kernels_ms": block_ms - kernels_ms}
+                "other_kernels_ms": glue_ms, "block_ms": block_ms,
+                "between_kernels_ms": block_ms - kernels_ms - glue_ms}
 
     # ------------------------------------------------------------------ commit
     NB, W = 17, 665
@@ -1008,6 +1066,284 @@ def main() -> int:
           "programs": programs, **routes[True], "tampered_rejected": True,
           "small_path": routes[False]})
 
+    # --------------------------------------------------------------- recursion
+    # The chain inner STARK -> recursive1 -> recursive2, each stage a plonk12c
+    # STARK proven through the kernels above.  First two proofs tied to the
+    # JAX package's golden files; then the production settings over a smoke
+    # proof at n_bits 17.
+    def run_stage(stage, inners, log_stage: bool = False):
+        """stage.prove(inners), every launch counter at 0 just before and
+        read just after, its host pieces read from the stage's spans;
+        returns the proof, the stage's line and, with `log_stage`, the log
+        of its kernel launches (log_launches)."""
+        refill = stage.prover is not None
+        tlog = TimerLog(f"chip_smoke:{stage.name}", quiet=True,
+                        peak_memory=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log = restore = None
+        if log_stage:
+            log, restore = log_launches()
+        zero_counters()
+        t0 = time.time()
+        try:
+            out = stage.prove(inners, timer=tlog)
+            torch.cuda.synchronize()
+        finally:
+            total = time.time() - t0
+            launches_s = read_counters()
+            if restore is not None:
+                restore()
+        spans = tlog.as_dict()
+        host = {key: spans[span] for key, span in (
+            ("build_verifier_circuit_s", "RECURSION_CIRCUIT"),
+            ("circuit_to_air_s", "RECURSION_LOWER"),
+            ("fill_trace_s", "RECURSION_REFILL"),
+            ("compile_air_s", "RECURSION_COMPILE"),
+            ("setup_s", "RECURSION_SETUP")) if span in spans}
+        host["prove_s"] = total - sum(host.values())
+        # K5 runs only where a transform falls in the pipeline's sizes, and
+        # a plonk12c circuit has no step-2 program (no plookup)
+        for k in ("linear_hash", "node_hash", "ntt_short"):
+            if launches_s[k] <= 0:
+                raise AssertionError(f"{stage.name}: never launched kernel {k}")
+        pr_ = stage.prover
+        vm_progs_ = [v for v in (pr_._vm2, pr_._vm3, pr_._vm4) if v is not None]
+        if (pr_._vm3 is None or pr_._vm4 is None or not pr_._step5_matrix
+                or (pr_._vm2 is None and stage.info.step2prev)
+                or launches_s["vm_run"] != len(vm_progs_)):
+            raise AssertionError(f"{stage.name}: not the large-circuit path")
+        t0 = time.time()
+        verify(stage.info, stage.const_root(), out)
+        t_ver = time.time() - t0
+        lay = stage.lay
+        line = {
+            "phase": "recursion", "stage": stage.name, "refill": refill,
+            "inner_proofs": len(inners),
+            "inner_n_bits": [i.n_bits for i, _r, _p in inners],
+            "settings": {"n_queries": stage.n_queries,
+                         "fri_fold_bits": stage.fri_fold_bits,
+                         "final_bits": stage.final_bits},
+            "layout": {"n_bits": lay.n_bits, "pub_rows": lay.n_pub_rows,
+                       "gate_rows": lay.n_gate_rows,
+                       "poseidon_rows": lay.n_pos_rows},
+            "circuit": stage._circuit_stats,
+            "n_bits_ext": stage.info.n_bits_ext,
+            "fri_step_bits": stage.info.fri_step_bits,
+            "section_widths": stage.info.section_widths,
+            "host_s": {**host, "stage_prove_s": total, "verify_s": t_ver},
+            "spans_s": spans, "peak_memory_bytes": max(tlog.peaks.values()),
+            "span_peak_bytes": dict(tlog.peaks),
+            "launches": launches_s, "verified": True}
+        return out, line, log
+
+    rec_lines = []
+    # tie to the reference: the Poseidon-preimage plonk12c proof and
+    # recursive1 over the golden n_bits 5 smoke proof
+    with open(os.path.join(root_dir, "tests", "data",
+                           "torch_plonk12c_proof.json")) as fh:
+        golden = json.load(fh)
+    c = Circuit()
+    pre = [c.witness(i + 5) for i in range(12)]
+    for w_out in c.poseidon(pre)[:4]:
+        c.expose(w_out)
+    air_p, trace_p, _lay = circuit_to_air(c, "p12c_test")
+    info_p = compile_air(air_p, **golden["compile_air"])
+    torch.cuda.synchronize()
+    zero_counters()
+    prover_p = StarkProver(info_p, np.stack(air_p.const_values, axis=1))
+    proof_p = prover_p.prove(trace_p)
+    torch.cuda.synchronize()
+    launches_p = read_counters()
+    if prover_p.const_tree.root() != golden["const_root"]:
+        raise AssertionError("plonk12c: const root differs from the golden file")
+    same_proof("plonk12c", proof_p,
+               StarkProof.from_json(json.dumps(golden["proof"])))
+    verify(info_p, prover_p.const_tree.root(), proof_p)
+    rec_lines.append({"phase": "recursion", "stage": "plonk12c (golden)",
+                      "layout": golden["layout"], "circuit": c.stats(),
+                      "equal_to_golden": True, "verified": True,
+                      "launches": launches_p})
+    emit(rec_lines[-1])
+    del prover_p, proof_p
+
+    with open(os.path.join(root_dir, "tests", "data",
+                           "torch_recursive1_proof.json")) as fh:
+        golden = json.load(fh)
+    with open(os.path.join(root_dir, "tests", "data",
+                           "torch_smoke_proof_nbits5.json")) as fh:
+        golden5 = json.load(fh)
+    air5, _ = build_smoke_air(n_bits=5, seed=golden5["seed"])
+    inner5 = (compile_air(air5, **golden5["compile_air"]), golden5["const_root"],
+              StarkProof.from_json(json.dumps(golden5["proof"])))
+    stage_g = rec.RecursiveStage("recursive1", **golden["compile_air"])
+    proof_g, line, _ = run_stage(stage_g, [inner5])
+    if [stage_g.lay.n_bits, stage_g.lay.n_pub_rows, stage_g.lay.n_gate_rows,
+            stage_g.lay.n_pos_rows] != golden["layout"]:
+        raise AssertionError("recursive1 (golden): layout differs")
+    if stage_g.const_root() != golden["const_root"]:
+        raise AssertionError("recursive1 (golden): const root differs")
+    same_proof("recursive1 (golden)", proof_g,
+               StarkProof.from_json(json.dumps(golden["proof"])))
+    rec_lines.append({**line, "stage": "recursive1 (golden)",
+                      "equal_to_golden": True})
+    emit(rec_lines[-1])
+    del stage_g, proof_g
+
+    # full width: the production recursion settings over a smoke proof at
+    # n_bits 17 whose own FRI takes the same settings.  (The ``prove``
+    # phase's proof ends FRI on a 2^12-element polynomial, and the verifier
+    # circuit checks its degree by a constant 2^12 x 2^12 INTT: some 25
+    # million gates, a 2^23-row stage.)
+    REC_SETTINGS = dict(n_queries=32, fri_fold_bits=3, final_bits=4)
+    info_in = compile_air(air17, **REC_SETTINGS)
+    prover_in = StarkProver(info_in, np.stack(air17.const_values, axis=1))
+    root_in = prover_in.const_tree.root()
+    proof_a = prover_in.prove(trace17)
+    verify(info_in, root_in, proof_a)
+    stage1 = rec.RecursiveStage("recursive1", **REC_SETTINGS)
+    p1a, line, rec1_log = run_stage(stage1, [(info_in, root_in, proof_a)],
+                                    log_stage=True)
+    rec_lines.append(line)
+    emit(line)
+    # a second inner proof through the same StarkProver (another witness of
+    # the same circuit), through the same stage: the witness-refill path
+    _air_b, trace_b = build_smoke_air(n_bits=17, seed=43)
+    proof_b = prover_in.prove(trace_b)
+    verify(info_in, root_in, proof_b)
+    prover1 = stage1.prover
+    p1b, line, _ = run_stage(stage1, [(info_in, root_in, proof_b)])
+    if stage1.prover is not prover1 or line["host_s"].get("circuit_to_air_s"):
+        raise AssertionError("recursive1: the second proof did not take the "
+                             "refill path")
+    if p1b.roots == p1a.roots:
+        raise AssertionError("recursive1: the refill proof repeats the first")
+    rec_lines.append(line)
+    emit(line)
+    root1 = stage1.const_root()
+    stage2 = rec.RecursiveStage("recursive2", **REC_SETTINGS)
+    p2, line, rec_log = run_stage(
+        stage2, [(stage1.info, root1, p1a), (stage1.info, root1, p1b)],
+        log_stage=True)
+    want = list(p1a.publics) + root1 + list(p1b.publics) + root1
+    if p2.publics != want:
+        raise AssertionError("recursive2: publics do not bind both children "
+                             "and the recursive1 root")
+    bad = StarkProof.from_json(p2.to_json())
+    bad.publics[3] = (bad.publics[3] + 1) % P
+    try:
+        verify(stage2.info, stage2.const_root(), bad)
+    except VerifyError:
+        pass
+    else:
+        raise AssertionError("recursive2: a proof with a changed public was "
+                             "accepted")
+    rec_lines.append({**line, "publics_bind_children": True,
+                      "tampered_rejected": True})
+    emit(rec_lines[-1])
+    rec_launches = {ln["stage"] + (" (refill)" if ln.get("refill") else ""):
+                    ln["launches"] for ln in rec_lines}
+    # recursive2's launches of K2, K4 and K5, each timed again at its shape
+    rec_times = {k: per_proof(rec_log[k], k)
+                 for k in ("linear_hash", "ntt_short", "ntt_block")}
+    k4_shapes = sorted({(a["x"], a["log_l"]) for _o, a in rec_log["ntt_short"]},
+                       key=lambda s: (-s[0][0] * s[0][1], s[1]))
+    k4_big = max(rec_log["ntt_short"], key=lambda c: c[1]["x"][0] * c[1]["x"][1])
+    rec_tree_heights = [a["h"] for _, a in rec_log["merkle"]]
+    rec_nb = stage2.info.n_bits
+    rec_info = stage2.info
+    rec_vm = {step: p_ for step, p_ in ((2, stage2.prover._vm2),
+                                        (3, stage2.prover._vm3),
+                                        (4, stage2.prover._vm4))
+              if p_ is not None}
+    del p1a, p1b, p2, bad, stage1, stage2, proof_a, proof_b, trace_b
+    del prover_in
+    torch.cuda.empty_cache()
+
+    # every kernel of the recursion path against its plain version at the
+    # shapes the stages gave it, on seeded data with the edge words (p and
+    # 2^64 - 1 among them) across the first and the last rows: each distinct
+    # launch of K2, K4 and K5 that recursive1 and recursive2 logged (K2 above
+    # 8192 rows on its first and last 4096 rows), every tree height they
+    # built through the dispatch, and recursive2's step programs at its
+    # domains
+    def hold_logged(stage_name, log_) -> None:
+        seen = set()
+        for kernel in ("linear_hash", "ntt_short", "ntt_block",
+                       "ntt_block_short"):
+            for orig, a in log_[kernel]:
+                key = (orig.__name__,) + tuple(
+                    (k, "tensor" if torch.is_tensor(v) else v)
+                    for k, v in a.items())
+                if key in seen:
+                    continue
+                seen.add(key)
+                plain = getattr(sys.modules[orig.__module__],
+                                orig.__name__ + "_plain")
+                data = next(k for k in ("rows", "x", "y") if k in a)
+                a = dict(a)
+                a[data] = edge_rows(rnd(*a[data]))
+                edge_rows(a[data][-len(lane_vals):])
+                what = ", ".join([
+                    f"recursion path, {stage_name}, {orig.__name__} "
+                    f"{tuple(a[data].shape)}"] + [
+                        f"{k}={v}" for k, v in a.items()
+                        if isinstance(v, (bool, int)) and k != data])
+                got = orig(**a)
+                rows = a[data].shape[0]
+                if kernel == "linear_hash" and rows > 8192:
+                    for part in (slice(0, 4096), slice(rows - 4096, rows)):
+                        hold(kernel, f"{what}, plain on rows {part.start}.."
+                             f"{part.stop - 1}", got[part],
+                             plain(rows=a[data][part]))
+                else:
+                    hold(kernel, what, got, plain(**a))
+                del got, a
+
+    hold_logged("recursive1", rec1_log)
+    hold_logged("recursive2", rec_log)
+    torch.cuda.empty_cache()
+    heights = sorted({a["h"] for log_ in (rec1_log, rec_log)
+                      for _o, a in log_["merkle"]})
+    forest = []
+    for h in heights:
+        nodes = torch.zeros((2 * h - 1, 4), dtype=torch.int64, device=dev)
+        nodes[:h] = edge_lanes(rnd(4, h)).T
+        forest.append(nodes)
+    got = [pc.merkle_levels_(t.clone(), h) for t, h in zip(forest, heights)]
+    for h, g, want in zip(heights, got, plain_levels_(forest)):
+        hold("node_hash", f"recursion path, merkle levels, h = {h}, edge "
+             f"words in every lane ({len(pc._level_plan(h))} launches)",
+             g, want)
+    del forest, got, nodes, g, want
+    torch.cuda.empty_cache()
+    for step in sorted(rec_vm):
+        prog, n, secs, kw = vm_case(step, rec_vm, rec_info)
+        got = vm.run_program(prog, rec_info, secs, n, **kw)
+        want = vm.run_program_plain(prog, rec_info, secs, n, **kw)
+        for dest in prog.out_regs:
+            hold("vm_run", f"recursion path, recursive2 step {step} program "
+                 f"({len(prog.code)} instructions, {prog.n_regs} registers, "
+                 f"n = {n}), dest {dest}", torch.stack(got[dest]),
+                 torch.stack(want[dest]))
+        del got, want, secs, kw
+    rec_vm_shapes = {str(step): {"instructions": len(p_.code),
+                                 "registers": p_.n_regs}
+                     for step, p_ in rec_vm.items()}
+    del rec1_log, rec_log, rec_vm
+    torch.cuda.empty_cache()
+    emit({"phase": "recursion_holds", "mismatches": 0,
+          "recursive2_vm_programs": rec_vm_shapes,
+          "cases": [c for c in checks
+                    if c["case"].startswith("recursion path")]})
+    # one 64-column block of recursive2's LDE, 2^20 -> 2^21, on the
+    # four-step route: K4's launches beside the plain glue between them
+    blk = rnd(1 << rec_nb, ntt.EXTEND_BLOCK_COLS + 3)[:, 1:-2]
+    emit({"phase": "lde_block_split", "route": "four-step (_ntt_rec)",
+          **lde_block_split(blk, rec_nb, pipeline=False)})
+    del blk
+    torch.cuda.empty_cache()
+
     # ---------------------------------------- times at the paths' shapes
     # Each entry: one launch at the largest shape its path gives it, and, for
     # the proofs' kernels, every launch of the proof timed again on its own
@@ -1028,10 +1364,17 @@ def main() -> int:
             "shape": shape, "launches": launches_,
             "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "recursion_launches": {stage: l_[name] for stage, l_ in
+                                   rec_launches.items()},
             **extra})
 
     def per_proof_keys(ms_bound):
         return {"per_proof_ms": ms_bound[0], "per_proof_bound_ms": ms_bound[1]}
+
+    def rec_keys(kernel):
+        """The recursive2 proof's launches of `kernel`, timed again."""
+        return {"recursive2_per_proof_ms": rec_times[kernel][0],
+                "recursive2_per_proof_bound_ms": rec_times[kernel][1]}
 
     # K1 on its path's state
     entry("permute", "ops/poseidon_tpu.py:317", [12, B_PERM], perm_launches["permute"],
@@ -1048,7 +1391,8 @@ def main() -> int:
           launches["linear_hash"], time_ms(lambda: pc.linear_hash(x), 7),
           time_ms(lambda: pc.linear_hash_plain(x), 2),
           call_bound_ms("linear_hash", {"rows": x}),
-          **per_proof_keys(proof_times["linear_hash"]))
+          **per_proof_keys(proof_times["linear_hash"]),
+          **rec_keys("linear_hash"))
 
     # K3: the largest tree level (the pair kernel); per proof, every tree the
     # proof builds, filled again through the dispatch (merkle_levels_) on a
@@ -1081,6 +1425,10 @@ def main() -> int:
     def tree_bound(h):
         return sum(perm_bound_ms(h >> k, (h >> k) * 12 * 8)[0]
                    for k in range(1, h.bit_length()))
+    for h in sorted(set(rec_tree_heights) - set(trees)):
+        nodes = rnd(2 * h - 1, 4)
+        trees[h] = (time_ms(lambda: pc.merkle_levels_(nodes, h), 5), None)
+    del nodes
     entry("node_hash", "ops/poseidon_tpu.py:350", [npairs, 4], launches["node_hash"],
           time_ms(lambda: pc.node_hash(l, r), 7),
           time_ms(lambda: pc.node_hash_plain(l, r), 2),
@@ -1088,9 +1436,16 @@ def main() -> int:
           per_proof_ms=sum(trees[h][0] for h in tree_heights),
           per_proof_bound_ms=sum(tree_bound(h) for h in tree_heights),
           per_proof_idle_card_ms=sum(trees[h][1] for h in tree_heights),
+          recursive2_per_proof_ms=sum(trees[h][0] for h in rec_tree_heights),
+          recursive2_per_proof_bound_ms=sum(tree_bound(h)
+                                            for h in rec_tree_heights),
+          recursive2_trees_per_height={str(h): rec_tree_heights.count(h)
+                                       for h in sorted(set(rec_tree_heights))},
           per_tree_ms={str(h): trees[h][0] for h in sorted(trees)},
-          per_tree_idle_card_ms={str(h): trees[h][1] for h in sorted(trees)},
-          trees_per_height={str(h): tree_heights.count(h) for h in sorted(trees)},
+          per_tree_idle_card_ms={str(h): trees[h][1] for h in sorted(trees)
+                                 if trees[h][1] is not None},
+          trees_per_height={str(h): tree_heights.count(h)
+                            for h in sorted(set(tree_heights))},
           per_level_ms=per_level, per_level_idle_card_ms=per_level_idle,
           launches_per_level={
               (f"{k} {n}" if k != "top" else f"top from {n} digests"):
@@ -1099,6 +1454,19 @@ def main() -> int:
           thresholds={"GROUP_MAX_PAIRS": pc.GROUP_MAX_PAIRS,
                       "TOP_MAX_PAIRS": pc.TOP_MAX_PAIRS})
     del l, r, lvl, lvl_out
+
+    # K4 on the recursion path: the largest of recursive2's launches (a
+    # transform of an LDE block, outside the pipeline's sizes; held in
+    # phase recursion_holds), timed
+    o4, a4 = k4_big
+    a4 = {k: rnd(*v) if k == "x" else v for k, v in a4.items()}
+    k4_rec = {"recursion_shape": list(a4["x"].shape),
+              "recursion_ms": time_ms(lambda: o4(**a4), 5),
+              "recursion_plain_ms": time_ms(
+                  lambda: ntt_cuda.ntt_short_plain(**a4), 2),
+              "recursion_bound_ms": call_bound_ms("ntt_short", a4)[0],
+              "recursion_shapes": [[list(sh), 1 << lg] for sh, lg in k4_shapes]}
+    del a4
 
     # K4: FRI's first fold, INTT of length 4 over (4, pol2N * 3)
     fold = info.fri_step_bits[0] - info.fri_step_bits[1]
@@ -1111,7 +1479,8 @@ def main() -> int:
           time_ms(lambda: ntt_cuda.ntt_short(x, t, fold), 7),
           time_ms(lambda: ntt_cuda.ntt_short_plain(x, t, fold), 2),
           call_bound_ms("ntt_short", {"x": x, "log_l": fold}),
-          **per_proof_keys(proof_times["ntt_short"]))
+          **per_proof_keys(proof_times["ntt_short"]), **rec_keys("ntt_short"),
+          **k4_rec)
 
     # K5: kernel B of the forward transform of the widest section's LDE
     log_l, b = ntt_cuda.MAX_KERNEL_BITS, (n_ext // n2) * wmax
@@ -1146,7 +1515,8 @@ def main() -> int:
           call_bound_ms("ntt_block", dict(x=x, log_l=log_l, u=None, v=None,
                                           const_scale=None)),
           gather_b_launches=launches["ntt_block_gather"],
-          **fused, **per_proof_keys(proof_times["ntt_block"]))
+          **fused, **per_proof_keys(proof_times["ntt_block"]),
+          **rec_keys("ntt_block"))
     del ya, yb
 
     # K6: kernel A of the n_bits 11 proof's widest LDE, n_bits 11 -> 12: the
@@ -1246,7 +1616,8 @@ def main() -> int:
 
     emit({"phase": "main_path_shapes_check", "mismatches": 0,
           "cases": [c for c in checks
-                    if c["case"].startswith(("main path", "path"))]})
+                    if c["case"].startswith(("main path", "path",
+                                             "recursion path"))]})
     emit({"phase": "done", "seconds": time.time() - t_start, "card": card})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -52,7 +52,8 @@ def test_port_has_every_expected_module():
                 "stark.evaluator", "stark.plookup", "stark.merkle_tree",
                 "models.smoke", "utils.timer", "convert", "stark.vm",
                 "ops.vm_cuda", "stark.checkpoint", "stark.pil_importer",
-                "stark.zkin"):
+                "stark.zkin", "recursion.gates", "recursion.plonk",
+                "recursion.verifier_circuit", "recursion.recursive"):
         assert f"merlin_zkevm_prover_tpu_torch.{sub}" in names
 
 
