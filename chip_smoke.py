@@ -104,9 +104,25 @@ and the exit code is non-zero unless every phase passed):
            equal tests/data/torch_bn128_proof.json and
            torch_groth16_final.json in every field, the key's verifying
            points and its tables' end points too
+  fflonk   fflonk as the final SNARK (FinalStage(protocol="fflonk"): the
+           PLONK form of snark/r1cs_to_plonk.py, snark/fflonk.py on B2-B4
+           and F1-F3): the JAX package's two golden fflonk proofs equal
+           tests/data/torch_fflonk_*.json; FinalStage(protocol="fflonk")
+           over the golden recursiveF proof (a 2^21-row PLONK form),
+           verified, a changed evaluation and a changed W1 rejected; the
+           production R1CS of phase final: its PLONK size counted, the
+           refusal asserted when its 4n domain exceeds Fr's two-adicity,
+           then the longest prefix of its constraints whose PLONK form
+           fills 2^FFLONK_PREFIX_BITS rows proven and verified.  One line a
+           case: spans, launches, each kernel's device ms (torch.profiler),
+           peaks
+  fflonk_holds  F1-F3 against their twins, exactly, at every distinct
+           shape phase fflonk launched them at; B3 at full random scalars
+           at every commitment's point count (against [sum s_i tau^i] G in
+           python ints) and, at the largest, against msm_plain
 
 Each path (permute, each golden proof, prove, prove_vm, each recursion
-stage, the final hop, the golden final hop) is driven with every launch
+stage, the final hop, the golden final hop, each fflonk case) is driven with every launch
 counter set to 0 just before it and read just after.  Each phase's line
 carries ``t_s``, the seconds since the script started.
 
@@ -114,7 +130,8 @@ Output: one JSON object per line.  An early line (phase
 ``poseidon_build``) gives each Poseidon kernel's registers and spills from
 the build log; the ``prove`` line gives the node-hash launches per kernel
 variant.  The line before the last lists every
-kernel (K1 to K6, and vm_run and B1-B4, which have no Pallas counterpart)
+kernel (K1 to K6, and vm_run, B1-B4 and F1-F3, which have no Pallas
+counterpart)
 with its launches on its path, its launches in each recursion stage
 (``recursion_launches``), its error against the plain version, its time,
 the plain version's time and the card's bound for the same work (K2 to
@@ -158,6 +175,8 @@ IMAD_PER_MUL64 = 4
 # neither is counted, nor is any add: the bound is below any algorithm's.
 PERM_IMAD32 = (8 * 12 + 22) * (2 * 3 + 2 * 4)
 
+# phase fflonk (c): the PLONK rows of the production R1CS's prefix
+FFLONK_PREFIX_BITS = 23
 LARGE_PATH_ENV = {"MERLIN_VM_MIN_NODES": "0", "MERLIN_STEP5_MATRIX_MIN": "0"}
 SMALL_PATH_ENV = {"MERLIN_VM_MIN_NODES": "1000000000",
                   "MERLIN_STEP5_MATRIX_MIN": "1000000000"}
@@ -324,6 +343,10 @@ def main() -> int:
     from merlin_zkevm_prover_tpu_torch.stark.prover_bn128 import (
         MerkleTreeBN128GL, StarkProverBN128, TranscriptBN128Adapter)
     from merlin_zkevm_prover_tpu_torch.tools import bn254_times as bnt
+    from merlin_zkevm_prover_tpu_torch.ops import bn254_fflonk_cuda as ffk
+    from merlin_zkevm_prover_tpu_torch.snark import fflonk as ffl
+    from merlin_zkevm_prover_tpu_torch.snark.setup import R1CS
+    from merlin_zkevm_prover_tpu_torch.tools import fflonk_times as fft_
 
     t_start = time.time()
     root_dir = os.path.dirname(os.path.abspath(__file__))
@@ -367,11 +390,11 @@ def main() -> int:
 
     def zero_counters() -> None:
         for counters in (pc.LAUNCHES, pc.NODE_HASH_LAUNCHES, ntt_cuda.LAUNCHES,
-                         ntt_cuda.SUB_LAUNCHES, vm_cuda.LAUNCHES,
+                         ntt_cuda.SUB_LAUNCHES, vm_cuda.LAUNCHES, ffk.LAUNCHES,
                          *[c for cs in bn_counters.values() for c in cs]):
             for k in counters:
                 counters[k] = 0
-        for shapes in bn_shapes:
+        for shapes in (*bn_shapes, ffk.SHAPES):
             shapes.clear()
 
     def read_counters() -> dict:
@@ -1486,7 +1509,7 @@ def main() -> int:
             raise AssertionError("recursiveF: a proof with a changed public "
                                  "was accepted")
         del bad, trace_f, circ
-        stage = FinalStage(info_f, root_f[0])
+        stage = FinalStage(info_f, root_f[0], keep_r1cs=True)
         g16 = stage.prove(pf, timer=tlog)
         torch.cuda.synchronize()
         total = time.time() - t0
@@ -1552,6 +1575,7 @@ def main() -> int:
                    for s_, c_ in v.items()], key=str)
         for k, v in fin_shapes.items()}})
     final_key = final_stage.key
+    prod_r1cs = final_stage.r1cs    # phase fflonk (c)
     del final_inner, final_stage
     torch.cuda.empty_cache()
 
@@ -2058,8 +2082,304 @@ def main() -> int:
           "recursiveF_equal_to_golden": True, "groth16_equal_to_golden": True,
           "vk_and_table_ends_equal": True, "r1cs": stage3.stats,
           "launches": read_bn_counters()})
-    del prover3, proof3, stage3, key3
+    root3 = prover3.const_tree.root()[0]
+    del prover3, stage3, key3
     torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ fflonk
+    # fflonk as the final SNARK (FinalStage(protocol="fflonk"): snark/
+    # r1cs_to_plonk.py, snark/fflonk.py on B2-B4 and F1-F3).  (a) The JAX
+    # package's two golden fflonk proofs (tests/data/torch_fflonk_n8.json,
+    # torch_fflonk_plonk.json) proven on the card equal the files.  (b) The
+    # golden tiny hop's recursiveF proof (proof3 above) through
+    # FinalStage(protocol="fflonk").prove: a 2^21-row PLONK form, verified,
+    # two tampered proofs rejected.  (c) Phase final's production R1CS: its
+    # PLONK size counted; when its 4n domain exceeds Fr's two-adicity,
+    # FinalStage's ValueError is asserted; then the longest prefix of its
+    # constraints (the same witness and publics) whose PLONK form fills
+    # n = 2^FFLONK_PREFIX_BITS is proven and verified.  (b) and (c) run
+    # under torch.profiler with every counter set to 0 just before each and
+    # read just after: spans, launches, each kernel's device ms, peaks.
+    kernel_of = {**bn_kernel_of, **fft_.KERNEL_OF}
+    ff_shapes: dict = {}         # every F1-F3 and B3 shape of the phase
+    t_ff = time.time()
+
+    def keep_shapes():
+        for shapes in (ffk.SHAPES, bn_msm.SHAPES):
+            for k, v in shapes.items():
+                rec_ = ff_shapes.setdefault(k, {})
+                for s_, c_ in v.items():
+                    rec_[s_] = rec_.get(s_, 0) + c_
+
+    def same_fflonk(what, key_, proof_, doc):
+        c0 = ffl.fr_ints(key_.c0_coefs)
+        got = {"C0": key_.C0, "x2": key_.x2, "w": key_.w, "c0_len": len(c0),
+               "c0_head": c0[:8], "c0_tail": c0[-8:]}
+        if json.loads(json.dumps(got)) != doc["key"]:
+            raise AssertionError(f"fflonk {what}: the key differs")
+        p_ = {k: proof_[k] for k in ("C1", "C2", "W1", "W2", "publics")}
+        p_["evals"] = dict(proof_["evals"])
+        for k, v in json.loads(json.dumps(p_)).items():
+            if v != doc["proof"][k]:
+                raise AssertionError(f"fflonk {what}: field {k} differs")
+
+    def fflonk_run(what, fn):
+        """fn(tlog) -> (stage, proof) under the profiler, counters at 0:
+        (stage, proof, the phase's line, the F1-F3 and B3 shapes)."""
+        zero_counters()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        tlog = TimerLog("chip_smoke:fflonk", quiet=True, peak_memory=True)
+        t0 = time.time()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            stage_, proof_ = fn(tlog)
+            torch.cuda.synchronize()
+        total = time.time() - t0
+        launches_ = {"F": dict(ffk.LAUNCHES), **{
+            b: d for b, d in read_bn_counters().items() if b != "B1"}}
+        keep_shapes()
+        shapes_ = {k: dict(v) for s_ in (ffk.SHAPES, bn_msm.SHAPES)
+                   for k, v in s_.items()}
+        by_kernel = fft_.kernel_device_ms(prof)
+        del prof
+        unknown = sorted(k for k in by_kernel if k not in kernel_of)
+        if unknown:
+            raise AssertionError(f"fflonk {what}: kernels {unknown} are not "
+                                 "among B1-B4, F1-F3")
+        for b, d in launches_.items():
+            if sum(d.values()) <= 0:
+                raise AssertionError(f"fflonk {what}: kernel {b} was never "
+                                     "launched")
+        for kid, keys_ in (("F1", ("scan",)), ("F2", ("inv",)),
+                           ("F3", ("quotient",))):
+            if sum(launches_["F"][k] for k in keys_) <= 0:
+                raise AssertionError(f"fflonk {what}: {kid} was never "
+                                     "launched")
+        if not proof_["verified"]:
+            raise AssertionError(f"fflonk {what}: not verified")
+        rejected = {k: not ffl.fflonk_verify(stage_.key, bad)
+                    for k, bad in fft_.tampered(proof_).items()}
+        if not all(rejected.values()):
+            raise AssertionError(f"fflonk {what}: a tampered proof was "
+                                 f"accepted: {rejected}")
+        ids = sorted({kernel_of[k] for k in by_kernel})
+        line = {"case": what, "stats": dict(stage_.stats), "total_s": total,
+                "spans_s": tlog.as_dict(), "span_peak_bytes": dict(tlog.peaks),
+                "peak_memory_bytes": max(tlog.peaks.values()),
+                "host_max_rss_bytes": resource.getrusage(
+                    resource.RUSAGE_SELF).ru_maxrss * 1024,
+                "launches": launches_,
+                "device_ms": {b: sum(d["ms"] for k, d in by_kernel.items()
+                                     if kernel_of[k] == b) for b in ids},
+                "device_ms_by_kernel": by_kernel,
+                "profiled_launches": {b: sum(
+                    d["launches"] for k, d in by_kernel.items()
+                    if kernel_of[k] == b) for b in ids},
+                "verified": True, "tampered_rejected": rejected,
+                "launched_shapes": {k: sorted(
+                    [[list(s_) if isinstance(s_, tuple) else s_, c_]
+                     for s_, c_ in v.items()], key=str)
+                    for k, v in shapes_.items()}}
+        return stage_, proof_, line, shapes_
+
+    # (a) the golden fflonk proofs
+    with open(os.path.join(root_dir, "tests", "data",
+                           "torch_fflonk_n8.json")) as fh:
+        g_n8 = json.load(fh)
+    with open(os.path.join(root_dir, "tests", "data",
+                           "torch_fflonk_plonk.json")) as fh:
+        g_pl = json.load(fh)
+    zero_counters()
+    t0 = time.time()
+    circ = g_n8["circuit"]
+    key_a = ffl.fflonk_setup(ffl.PlonkCS(**circ["cs"]), seed=g_n8["seed"],
+                             device=dev)
+    same_fflonk("n8 (golden)", key_a, ffl.fflonk_prove(
+        key_a, circ["a"], circ["b"], circ["c"],
+        rand=bytes.fromhex(g_n8["rand"])), g_n8)
+    r1cs_a = R1CS(n_vars=g_pl["r1cs"]["n_vars"],
+                  n_public=g_pl["r1cs"]["n_public"],
+                  **{m: [{int(s_): int(k_) for s_, k_ in row}
+                         for row in g_pl["r1cs"][m]] for m in "abc"})
+    stage_a = FinalStage(None, 0, setup_seed=g_pl["seed"], protocol="fflonk")
+    proof_a = stage_a._prove_fflonk(r1cs_a, g_pl["witness"],
+                                    rand=bytes.fromhex(g_pl["rand"]))
+    same_fflonk("plonk (golden)", stage_a.key, proof_a, g_pl)
+    keep_shapes()
+    del key_a, stage_a, proof_a, r1cs_a
+    ff_lines = [{"case": "golden", "n8_equal_to_golden": True,
+                 "plonk_equal_to_golden": True, "plonk_n": g_pl["n"],
+                 "seconds": time.time() - t0}]
+
+    # (b) the golden tiny hop through the user's entry point
+    stage_b, proof_b, line_b, b_shapes = fflonk_run(
+        "golden hop (FinalStage.prove)", lambda tlog: (lambda st: (
+            st, st.prove(proof3, timer=tlog)))(
+            FinalStage(info3, root3, protocol="fflonk")))
+    ff_lines.append(line_b)
+    del stage_b, proof_b, proof3
+    torch.cuda.empty_cache()
+
+    # (c) the production R1CS: its size, the refusal, the prefix
+    r1cs_p, wit_p = prod_r1cs
+    del prod_r1cs
+    # one count of its PLONK gates, inside FinalStage's route (kept by
+    # keep_r1cs); the route must refuse a 4n domain above Fr's two-adicity
+    t0 = time.time()
+    st = FinalStage(None, 0, protocol="fflonk", keep_r1cs=True)
+    refused = None
+    try:
+        st._prove_fflonk(r1cs_p, wit_p)
+    except ValueError as e:
+        refused = str(e)
+    n_p = st.stats["plonk_n"]
+    line_c = {"case": "production R1CS", "constraints": len(r1cs_p.a),
+              "plonk_gates": st.stats["plonk_gates"], "plonk_n": n_p,
+              "plonk_log_n": n_p.bit_length() - 1, "count_s": time.time() - t0,
+              "domain_4n_log": (4 * n_p).bit_length() - 1,
+              "srs_points_needed": 9 * n_p + 32, "refused": refused}
+    if 4 * n_p > 1 << ffl.TWO_ADICITY and (
+            refused is None or "two-adicity" not in refused or
+            st.key is not None):
+        raise AssertionError("fflonk: the production R1CS was not refused "
+                             f"before its setup: {refused}")
+    per_p = st.plonk_gates
+    del st
+    t0 = time.time()
+    pre = fft_.prefix_r1cs(r1cs_p, wit_p, FFLONK_PREFIX_BITS, per_p)
+    del r1cs_p, wit_p, per_p
+    if pre is None:
+        raise AssertionError("fflonk: the production R1CS is smaller than "
+                             f"2^{FFLONK_PREFIX_BITS} PLONK rows")
+    r1cs_c, wit_c, m_c = pre
+    del pre
+    line_c["prefix_constraints"] = m_c
+    line_c["prefix_s"] = time.time() - t0       # the cut, the full R1CS freed
+    ff_lines.append(line_c)
+    stage_c, proof_c, line_c2, _ = fflonk_run(
+        f"production prefix (n = 2^{FFLONK_PREFIX_BITS})",
+        lambda tlog: (lambda st: (st, st._prove_fflonk(r1cs_c, wit_c,
+                                                       timer=tlog)))(
+            FinalStage(None, 0, protocol="fflonk")))
+    ff_lines.append({**line_c2, "prefix_constraints": m_c})
+    del r1cs_c, wit_c, proof_c
+    for line_ in ff_lines:
+        emit({"phase": "fflonk", **line_})
+
+    # ------------------------------------------------------- fflonk_holds
+    # F1-F3 against their plain twins, exactly, at every distinct shape of
+    # phase fflonk (the wrappers' SHAPES records): scans with the identity
+    # between the first and last 64 rows, the twin on those rows of the
+    # first and last 64 chains, the rows between checked equal to the row
+    # the scan enters them by; inverses and quotient parts on the first and
+    # last 4096 elements or points (seeded, edge values 0, 1, r - 1 at both
+    # ends).  B3 at full random scalars: at every distinct G1 point count
+    # of the phase (its window: pick_window), over the prefix key's SRS
+    # (tau^i G) with every scalar full and random, against [sum s_i tau^i]
+    # G (the scalar in Fr on the card, the point in python ints); at the
+    # largest, with full scalars on the first and last 4096 points and zero
+    # between, against msm_plain on those at the same window.
+    ff_holds = []
+    ff_worst = {"F1": 0, "F2": 0, "F3": 0, "B3": 0}
+
+    def ff_hold(kid, res):
+        res = {**res, "kernel_id": kid}
+        ff_holds.append(res)
+        ff_worst[kid] = max(ff_worst[kid], res["max_abs_err"])
+        if res["max_abs_err"] != 0:
+            raise AssertionError(f"fflonk_holds: {res} differs")
+
+    gen_ff = torch.Generator(device=dev)
+    gen_ff.manual_seed(2029)
+    for (length, k, op, backward) in sorted(ff_shapes.get("scan", {})):
+        ff_hold("F1", fft_.hold_scan(length, k, op, backward, gen_ff, dev))
+    for n in sorted(ff_shapes.get("inv", {})):
+        ff_hold("F2", fft_.hold_inv(n, gen_ff, dev))
+    for (part, n) in sorted(ff_shapes.get("quotient", {})):
+        ff_hold("F3", fft_.hold_quotient(part, n, gen_ff, dev))
+        torch.cuda.empty_cache()
+    srs_c = stage_c.key.srs_g1
+    tau_c = int.from_bytes(ffl.keccak256(b"fflonk-dev-srs" + stage_c.setup_seed
+                                         .to_bytes(8, "big")), "big") % bf.FR.mod
+    g1_counts = sorted(n for (grp, n, _c) in ff_shapes.get("digits", {})
+                       if grp == "G1")
+    for n in g1_counts:
+        ff_hold("B3", fft_.hold_commit_full(srs_c, tau_c, n, gen_ff, dev))
+        torch.cuda.empty_cache()
+    n_big = g1_counts[-1]
+    s_big = torch.zeros((n_big, 4), dtype=torch.int64, device=dev)
+    sel_big = fft_._ends_idx(n_big, 4096, dev)
+    s_big[sel_big] = bnt.field_elems(bf.FR, sel_big.numel(), gen_ff, dev)
+    ff_hold("B3", {**bnt.hold_msm(bn_curve.F1, bn_curve.unpack(
+        bn_curve.F1, srs_c[:n_big]), s_big, c=bn_msm.pick_window(n_big)),
+        "scalars": "full random on the first and last 4096, zero between"})
+    del s_big, sel_big, srs_c, stage_c
+    torch.cuda.empty_cache()
+    emit({"phase": "fflonk_holds", "mismatches": 0, "holds": ff_holds,
+          "seconds": time.time() - t_ff})
+
+    # F1-F3's entries: one launch at the largest shape phase fflonk (b)
+    # gave each, the twin on what its hold takes; launches: (b)'s, and
+    # (c)'s beside them.  B2-B4's entries gain their fflonk launches and
+    # device ms.
+    ff_b, ff_c = ff_lines[1], ff_lines[-1]
+    fl_b = ff_b["launches"]["F"]
+    for e in entries:
+        kid = {"bn254_ntt": "B2", "bn254_msm": "B3",
+               "bn254_fixed_base": "B4"}.get(e["name"])
+        if kid:
+            e["fflonk_launches"] = sum(ff_b["launches"][kid].values())
+            e["fflonk_device_ms"] = ff_b["device_ms"].get(kid, 0.0)
+            e["fflonk_prefix_launches"] = sum(ff_c["launches"][kid].values())
+            e["fflonk_prefix_device_ms"] = ff_c["device_ms"].get(kid, 0.0)
+
+    def ff_entry(kid, name, launches_, shape, ms, plain_ms, bound, **extra):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "merlin_zkevm_prover_tpu_torch/csrc/bn254_fflonk.cu",
+            "replaces": "merlin_zkevm_prover_tpu/snark/fflonk.py:" + extra.pop(
+                "line"),
+            "pallas_kernel": False, "shape": shape, "launches": launches_,
+            "max_abs_err": ff_worst[kid], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "per_fflonk_proof_device_ms": ff_b["device_ms"].get(kid, 0.0),
+            "prefix_launches": sum(ff_c["launches"]["F"][k] for k in (
+                ("scan", "scan_carry") if kid == "F1" else
+                ("inv",) if kid == "F2" else ("quotient",))),
+            "prefix_device_ms": ff_c["device_ms"].get(kid, 0.0), **extra})
+
+    length1, k1, op1, bw1 = max(b_shapes["scan"], key=lambda s_: s_[0])
+    x1 = fft_._mont_elems(length1, gen_ff, dev, no_zero=True)
+    x1s = x1[:8192]
+    ff_entry("F1", "bn_fr_scan", fl_b["scan"] + fl_b["scan_carry"],
+             [length1, k1, op1, "backward" if bw1 else "forward"],
+             time_ms(lambda: ffk.scan(x1, k1, op1, bw1), 3),
+             once_ms(lambda: ffk.scan_plain(x1s, min(k1, 64), op1, bw1)),
+             fft_.bound_scan(length1, op1), line="117",
+             plain_held=[8192, min(k1, 64)],
+             launches_by_kernel={"scan": fl_b["scan"],
+                                 "scan_carry": fl_b["scan_carry"]})
+    del x1, x1s
+    n2_ = max(b_shapes["inv"])
+    x2_ = fft_._mont_elems(n2_, gen_ff, dev)
+    ff_entry("F2", "bn_fr_inv", fl_b["inv"], [n2_],
+             time_ms(lambda: ffk.inv(x2_), 3),
+             once_ms(lambda: ffk.inv_plain(x2_[:8192])),
+             fft_.bound_inv(n2_), line="366", plain_held=[min(n2_, 8192)])
+    del x2_
+    part3, n3_ = max(b_shapes["quotient"], key=lambda s_: (s_[1], s_[0]))
+    cols3, consts3 = fft_.quotient_inputs(part3, n3_, gen_ff, dev)
+    rows3 = fft_._ends_idx(n3_, 4096, dev)
+    ff_entry("F3", "bn_fflonk_quotient", fl_b["quotient"], [part3, n3_],
+             time_ms(lambda: ffk.quotient(part3, cols3, **consts3), 3),
+             once_ms(lambda: ffk.quotient_plain(part3, cols3, **consts3,
+                                                rows=rows3)),
+             fft_.bound_quotient(part3, n3_), line="326",
+             plain_held=[int(rows3.numel())])
+    del cols3, rows3
+    torch.cuda.empty_cache()
+    emit({"phase": "fflonk_kernels", "kernels": entries[-3:]})
+
 
     emit({"phase": "main_path_shapes_check", "mismatches": 0,
           "cases": [c for c in checks

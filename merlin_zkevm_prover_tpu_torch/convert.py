@@ -158,3 +158,98 @@ def groth16_key_from_reference(key, device=None):
         points_a=pt(F1, key.points_a), points_b1=pt(F1, key.points_b1),
         points_b2=pt(F2, key.points_b2), points_c=pt(F1, key.points_c),
         points_h=pt(F1, key.points_h))
+
+
+# ---------------------------------------------------------------------------
+# fflonk: the reference's PLONK system, key and proof are python ints; the
+# port keeps selectors as uint64 limbs and the polynomials and SRS on the
+# device.  These give each side the other's form.
+# ---------------------------------------------------------------------------
+
+PLONK_SELECTORS = ("qL", "qR", "qM", "qO", "qC")
+
+
+def plonk_cs_from_reference(cs):
+    """A reference ``PlonkCS`` (lists of ints) -> the port's."""
+    from .snark.fflonk import PlonkCS
+
+    return PlonkCS(n=cs.n, **{k: getattr(cs, k) for k in PLONK_SELECTORS},
+                   sigma=list(cs.sigma), n_public=cs.n_public)
+
+
+def plonk_cs_to_reference(cs) -> Dict[str, Any]:
+    """The port's ``PlonkCS`` -> the reference's fields as python ints
+    (``PlonkCS(**fields)`` in the reference)."""
+    from .ops import bn254_field as bf
+
+    out: Dict[str, Any] = {"n": cs.n, "n_public": cs.n_public,
+                           "sigma": [int(v) for v in cs.sigma]}
+    for k in PLONK_SELECTORS:
+        out[k] = bf.limbs_to_ints(getattr(cs, k))
+    return out
+
+
+def plonk_values_to_reference(*vals):
+    """r1cs_to_plonk's (n, 4) limb columns -> the reference's int lists."""
+    from .ops import bn254_field as bf
+
+    return tuple(bf.limbs_to_ints(v) for v in vals)
+
+
+def g1_words_from_affine(pairs, device=None):
+    """Affine G1 points (python-int pairs, None for infinity) -> (m, 12)
+    packed Jacobian words (``curve.pack``)."""
+    from .snark import curve
+
+    F1 = curve.F1
+    xs = [p[0] if p is not None else 1 for p in pairs]
+    ys = [p[1] if p is not None else 1 for p in pairs]
+    pts = curve.from_affine(F1, F1.from_int(xs, device),
+                            F1.from_int(ys, device))
+    words = curve.pack(F1, pts)
+    inf = [i for i, p in enumerate(pairs) if p is None]
+    if inf:
+        words[inf] = curve.pack(F1, curve.infinity(F1, (len(inf),), device))
+    return words
+
+
+def fflonk_key_from_reference(key, device=None):
+    """A reference ``FflonkKey`` (python ints) -> the port's on `device`."""
+    from .snark import fflonk as pf
+
+    return pf.FflonkKey(
+        cs=plonk_cs_from_reference(key.cs),
+        srs_g1=g1_words_from_affine(key.srs_g1, device), x2=key.x2,
+        C0=key.C0, c0_coefs=pf.fr_tensor(key.c0_coefs, device),
+        sel_coefs={k: pf.fr_tensor(v, device)
+                   for k, v in key.sel_coefs.items()},
+        sigma_coefs=[pf.fr_tensor(v, device) for v in key.sigma_coefs],
+        w=key.w)
+
+
+def fflonk_key_to_reference(key) -> Dict[str, Any]:
+    """The port's ``FflonkKey`` -> the reference's fields as python ints
+    (``FflonkKey(**fields)`` in the reference, ``cs`` a field dict)."""
+    from .snark import curve
+    from .snark import fflonk as pf
+
+    return {"cs": plonk_cs_to_reference(key.cs),
+            "srs_g1": curve.affine_ints(curve.F1,
+                                        curve.unpack(curve.F1, key.srs_g1)),
+            "x2": key.x2, "C0": key.C0,
+            "c0_coefs": pf.fr_ints(key.c0_coefs),
+            "sel_coefs": {k: pf.fr_ints(v) for k, v in key.sel_coefs.items()},
+            "sigma_coefs": [pf.fr_ints(v) for v in key.sigma_coefs],
+            "w": key.w}
+
+
+def fflonk_proof_to_reference(proof) -> Dict[str, Any]:
+    """A fflonk proof dict with its points as tuples and its scalars as
+    python ints (either package's proof; JSON gives lists)."""
+    out = dict(proof)
+    for k in ("C1", "C2", "W1", "W2"):
+        p = proof[k]
+        out[k] = None if p is None else (int(p[0]), int(p[1]))
+    out["evals"] = {k: int(v) for k, v in proof["evals"].items()}
+    out["publics"] = [int(v) for v in proof["publics"]]
+    return out

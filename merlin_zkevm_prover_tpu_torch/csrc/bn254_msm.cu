@@ -7,9 +7,11 @@
 // products; a G2 one about three times that); a point is 96 or 192 bytes.
 //
 // B3, with c-bit windows (snark/msm.py drives them in this order):
-//   bn_msm_digits: one thread per (window, scalar): the key w * 2^c + digit,
-//     -1 for digit 0 (skipped);  the wrapper sorts the keys (torch.sort)
-//     and cuts each bucket into ranges of at most 32 entries (sum_range);
+//   bn_msm_digits: one thread per (window, scalar) of a group of windows
+//     w0 .. (the wrapper sorts at most MSM_GROUP_ENTRIES keys at once): the
+//     key (w - w0) * 2^c + digit, -1 for digit 0 (skipped); the wrapper
+//     sorts the keys (torch.sort) and cuts each bucket into ranges of at
+//     most 32 entries (sum_range);
 //   bn_sum_ranges: one thread per range: the sum of its points (through an
 //     index array on the first pass, contiguous partial sums after), until
 //     each bucket is one sum.  The same kernel over Fr sums the Groth16
@@ -37,13 +39,15 @@ static inline unsigned msm_blocks(long long n) {
     return (unsigned)((n + BN_MSM_THREADS - 1) / BN_MSM_THREADS);
 }
 
+// windows w0 .. w0 + nw - 1; key (w - w0) * 2^c + digit
 __global__ void bn_msm_digits_kernel(const uint64_t* __restrict__ scalars,
-                                     long long n, int c, int nw, int bits,
-                                     long long* __restrict__ keys) {
+                                     long long n, int c, int w0, int nw,
+                                     int bits, long long* __restrict__ keys) {
     const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (e >= n * nw) return;
-    const int w = (int)(e / n);
-    const long long i = e - (long long)w * n;
+    const int wl = (int)(e / n);
+    const int w = w0 + wl;
+    const long long i = e - (long long)wl * n;
     const uint64_t* s = scalars + 4 * i;
     long long digit = 0;
     for (int k = 0; k < c; ++k) {
@@ -51,7 +55,7 @@ __global__ void bn_msm_digits_kernel(const uint64_t* __restrict__ scalars,
         if (b >= bits) break;
         digit |= (long long)((s[b >> 6] >> (b & 63)) & 1ull) << k;
     }
-    keys[e] = digit == 0 ? -1 : ((long long)w << c) | digit;
+    keys[e] = digit == 0 ? -1 : ((long long)wl << c) | digit;
 }
 
 // An element of a range sum: an Fr value or a point, with its identity
@@ -210,11 +214,12 @@ __global__ void bn_fixed_base_kernel(const uint64_t* __restrict__ table,
 }
 
 extern "C" int merlin_bn_msm_digits(const void* scalars, long long n, int c,
-                                    int nw, int bits, void* keys, void* stream) {
+                                    int w0, int nw, int bits, void* keys,
+                                    void* stream) {
     if (n <= 0) return 0;
     bn_msm_digits_kernel<<<msm_blocks(n * nw), BN_MSM_THREADS, 0,
                            (cudaStream_t)stream>>>(
-        (const uint64_t*)scalars, n, c, nw, bits, (long long*)keys);
+        (const uint64_t*)scalars, n, c, w0, nw, bits, (long long*)keys);
     return (int)cudaGetLastError();
 }
 

@@ -46,17 +46,23 @@ def mont_mul_plain(ctx: FpCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return bf.from16(bf.mul16(ctx, bf.to16(a), bf.to16(b)))
 
 
-def mont_mul(ctx: FpCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(..., 4) a times b of a's shape or one (4,) element."""
+def mont_mul(ctx: FpCtx, a: torch.Tensor, b: torch.Tensor,
+             out: torch.Tensor = None) -> torch.Tensor:
+    """(..., 4) a times b of a's shape or one (4,) element; into `out` (a
+    contiguous tensor of a's shape, which may be `a`) when given."""
     if not a.is_cuda:
-        return mont_mul_plain(ctx, a, b)
+        res = mont_mul_plain(ctx, a, b)
+        return res if out is None else out.copy_(res)
     _check(a, "mont_mul")
     _check(b, "mont_mul")
     a = a.contiguous()
     if b.shape != a.shape and b.numel() != bf.N_LIMBS:
         b = b.expand(a.shape)
     b = b.contiguous()
-    out = torch.empty_like(a)
+    if out is None:
+        out = torch.empty_like(a)
+    elif out.shape != a.shape or not out.is_contiguous():
+        raise ValueError("mont_mul: out must be contiguous, of a's shape")
     n = a.numel() // bf.N_LIMBS
     if n == 0:
         return out

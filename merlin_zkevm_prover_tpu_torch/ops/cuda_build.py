@@ -143,13 +143,19 @@ def lib() -> ctypes.CDLL:
                     ("merlin_bn_fr_powers", [vp, vp, ll, vp, vp]),
                     ("merlin_bn_mont_mul", [ci, vp, vp, ll, ll, vp, vp]),
                     ("merlin_bn_fr_mul_sub", [vp, vp, vp, ll, vp, vp]),
-                    ("merlin_bn_msm_digits", [vp, ll, ci, ci, ci, vp, vp]),
+                    ("merlin_bn_msm_digits", [vp, ll, ci, ci, ci, ci, vp, vp]),
                     ("merlin_bn_sum_ranges", [ci, vp, vp, vp, vp, ll, vp, vp]),
                     ("merlin_bn_bucket_reduce", [ci, vp, ci, ci, ci, vp, vp]),
                     ("merlin_bn_window_reduce", [ci, vp, ci, ci, ci, vp, vp]),
                     ("merlin_bn_window_combine", [ci, vp, ci, ci, vp, vp]),
                     ("merlin_bn_double_table", [ci, vp, vp, vp]),
-                    ("merlin_bn_fixed_base", [ci, vp, vp, ll, vp, vp])):
+                    ("merlin_bn_fixed_base", [ci, vp, vp, ll, vp, vp]),
+                    # the fflonk kernels (F1-F3)
+                    ("merlin_bn_fr_scan", [vp, ll, ll, ll, ci, ci, vp, vp, vp]),
+                    ("merlin_bn_fr_scan_carry", [vp, ll, ll, ll, ci, ci, vp, vp]),
+                    ("merlin_bn_fr_scan_seg", []),
+                    ("merlin_bn_fr_inv", [vp, ll, vp, vp]),
+                    ("merlin_bn_fflonk_quotient", [vp, vp])):
                 fn = getattr(cdll, name)
                 fn.argtypes = args
                 fn.restype = ci

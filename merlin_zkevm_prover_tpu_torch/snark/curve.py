@@ -15,7 +15,9 @@ setup's point tables) launches B4 on a CUDA point (``csrc/bn254_msm.cu``:
 the 256 doublings 2^k P once, then one thread a scalar adding the 2^k P of
 its set bits: the reference's double-and-add scan, whose doublings do not
 depend on the scalar); ``scalar_mul_table_plain`` is its twin, the same
-sum as a tree over the bits.  ``scalar_mul`` is the table of one scalar.
+sum added pairwise over the set bits.  ``scalar_mul_words`` gives the
+table packed (the form a large table such as fflonk's SRS keeps), and
+``scalar_mul`` the table of one scalar.
 The scalars' bits are made on the host with numpy (the reference's python
 loop over n x 256 bits takes minutes at n = 4 million).
 ``LAUNCHES`` counts B4's launches.
@@ -435,41 +437,21 @@ def _take_rows(F, a, k):
 
 def scalar_mul_table_plain(F, p: Point, scalars: torch.Tensor) -> Point:
     """Twin of B4: the doublings 2^k P of the base, then for each scalar
-    the sum of those of its set bits, as a tree over the bit axis."""
+    the sum of those of its set bits, summed pairwise as B3's twin sums a
+    bucket (``msm.run_sums_plain``)."""
+    from .msm import run_sums_plain
+
     dev = _device_of(F, p)
     n = scalars.shape[0]
     bits = scalar_bits(scalars)
     top = int(bits.any(dim=0).nonzero().max()) + 1 if bool(bits.any()) else 0
-    if top == 0:
-        return infinity(F, (n,), dev)
-    table = _doublings16(F, p, top)
-    terms = _bcast(F, table, (n, top))
-    terms = _sel(F, bits[:, :top], terms, _inf16(F, (n, top), dev))
-    while F.shape_of(terms.z)[1] > 1:
-        k = F.shape_of(terms.z)[1]
-        half = k // 2
-        lo = _map(F, lambda a: _take(F, a, slice(0, 2 * half, 2)), terms)
-        hi = _map(F, lambda a: _take(F, a, slice(1, 2 * half, 2)), terms)
-        summed = add16(F, lo, hi)
-        if k % 2:
-            rest = _map(F, lambda a: _take(F, a, slice(k - 1, k)), terms)
-            summed = _map2(F, lambda a, b: torch.cat([a, b], dim=1), summed,
-                           rest)
-        terms = summed
-    return join_point(F, _map(F, lambda a: _take(F, a, 0), terms))
-
-
-def _take(F, a, idx):
-    if F is F2:
-        return Fq2El(a.c0[:, idx], a.c1[:, idx])
-    return a[:, idx]
-
-
-def _map2(F, fn, p: Point, q: Point) -> Point:
-    if F is F2:
-        return Point(*[Fq2El(fn(a.c0, b.c0), fn(a.c1, b.c1))
-                       for a, b in zip(p, q)])
-    return Point(*[fn(a, b) for a, b in zip(p, q)])
+    out = pack(F, infinity(F, (n,), dev))
+    if top:
+        table = pack(F, join_point(F, _doublings16(F, p, top)))
+        ent = torch.nonzero(bits[:, :top])        # by scalar, then bit
+        sums, keys = run_sums_plain(F, table[ent[:, 1]], ent[:, 0])
+        out[keys] = sums
+    return unpack(F, out)
 
 
 def scalar_mul_table(F, p: Point, scalars) -> Point:
@@ -479,6 +461,16 @@ def scalar_mul_table(F, p: Point, scalars) -> Point:
     s = _scalar_limbs(scalars, dev)
     if not s.is_cuda:
         return scalar_mul_table_plain(F, p, s)
+    return unpack(F, scalar_mul_words(F, p, s))
+
+
+def scalar_mul_words(F, p: Point, scalars) -> torch.Tensor:
+    """scalar_mul_table as (n, 12) or (n, 24) packed words (``pack``), the
+    form a large table keeps (the MSM reads it without a copy)."""
+    dev = _device_of(F, p)
+    s = _scalar_limbs(scalars, dev)
+    if not s.is_cuda:
+        return pack(F, scalar_mul_table_plain(F, p, s))
     n = s.shape[0]
     s = s.contiguous()
     base = pack(F, p).reshape(-1).contiguous()
@@ -499,7 +491,7 @@ def scalar_mul_table(F, p: Point, scalars) -> Point:
             F.g2, _vp(table.data_ptr()), _vp(s.data_ptr()), n,
             _vp(out.data_ptr()), stream), "bn254 fixed base")
         cuda_build.count(LAUNCHES, SHAPES, "fixed_base", (group, n))
-    return unpack(F, out)
+    return out
 
 
 def scalar_mul(F, p: Point, e: int) -> Point:

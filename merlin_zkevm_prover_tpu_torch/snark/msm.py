@@ -15,7 +15,8 @@ scalars are often 0 or 1, so one bucket can hold half the points); one
 thread a segment of ``2^SEG_BITS`` buckets runs the running sum, one
 thread a window joins the segments, one thread the windows.  The plain
 twin (``msm_plain``) sums a bucket as a tree of pairs (``run_sums_plain``)
-and a window as sum_k 2^k (sum of the buckets with bit k set): the same
+and a window as sum_k 2^k (sum of the buckets with bit k set, the odd
+nodes of level k of a tree over the buckets): the same
 point, reached by another projective form, so results compare after
 ``to_affine``.
 
@@ -39,6 +40,10 @@ from . import curve
 from .curve import F2, Fq2El, Point
 
 SEG_BITS = 6      # buckets a thread of the running sum: 2^SEG_BITS
+# digit entries (points x windows) sorted at once: larger MSMs run their
+# windows in groups (a fflonk commitment at n = 2^24 has 151 million
+# points and 22 windows)
+MSM_GROUP_ENTRIES = 1 << 28
 
 LAUNCHES = {"digits": 0, "sum_ranges": 0, "bucket_reduce": 0,
             "window_reduce": 0, "window_combine": 0}
@@ -188,8 +193,13 @@ def sum_by_key_unsorted(F, vals: torch.Tensor, keys: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _msm_cuda(F, points: Point, scalars: torch.Tensor, bits: int, c: int
-              ) -> Point:
+def _packed(F, points) -> torch.Tensor:
+    """(n, W) words of `points`: a Point, or words already packed (a table
+    kept packed, whose leading rows are taken without a copy)."""
+    return points if isinstance(points, torch.Tensor) else curve.pack(F, points)
+
+
+def _msm_cuda(F, points, scalars: torch.Tensor, bits: int, c: int) -> Point:
     dev = scalars.device
     n = scalars.shape[0]
     nw = -(-bits // c)
@@ -197,28 +207,36 @@ def _msm_cuda(F, points: Point, scalars: torch.Tensor, bits: int, c: int
     lib = cuda_build.lib()
     stream = _vp(cuda_build.stream_ptr())
     scalars = scalars.contiguous()
-    keys = torch.empty(n * nw, dtype=torch.int64, device=dev)
-    cuda_build.check(lib.merlin_bn_msm_digits(
-        _vp(scalars.data_ptr()), n, c, nw, bits, _vp(keys.data_ptr()), stream),
-        "bn254 msm digits")
-    cuda_build.count(LAUNCHES, SHAPES, "digits", shape)
-    k_sorted, idx = _sorted_entries(keys, n)
-    del keys
-    buckets = sum_by_key(F, curve.pack(F, points), k_sorted, idx, nw << c)
-    words = buckets.shape[1]
+    pts = _packed(F, points)
+    words = pts.shape[1]
     seg_bits = min(SEG_BITS, c)
     n_seg = 1 << (c - seg_bits)
-    partials = torch.empty((nw * n_seg * 2, words), dtype=torch.int64,
-                           device=dev)
-    cuda_build.check(lib.merlin_bn_bucket_reduce(
-        F.g2, _vp(buckets.data_ptr()), nw, c, seg_bits,
-        _vp(partials.data_ptr()), stream), "bn254 msm bucket reduce")
-    cuda_build.count(LAUNCHES, SHAPES, "bucket_reduce", shape)
+    # windows a group: the keys of a group are sorted at once
+    per = max(1, min(nw, MSM_GROUP_ENTRIES // max(n, 1)))
     wsums = torch.empty((nw, words), dtype=torch.int64, device=dev)
-    cuda_build.check(lib.merlin_bn_window_reduce(
-        F.g2, _vp(partials.data_ptr()), nw, n_seg, seg_bits,
-        _vp(wsums.data_ptr()), stream), "bn254 msm window reduce")
-    cuda_build.count(LAUNCHES, SHAPES, "window_reduce", shape)
+    for w0 in range(0, nw, per):
+        g = min(per, nw - w0)
+        keys = torch.empty(n * g, dtype=torch.int64, device=dev)
+        cuda_build.check(lib.merlin_bn_msm_digits(
+            _vp(scalars.data_ptr()), n, c, w0, g, bits, _vp(keys.data_ptr()),
+            stream), "bn254 msm digits")
+        cuda_build.count(LAUNCHES, SHAPES, "digits", shape)
+        k_sorted, idx = _sorted_entries(keys, n)
+        del keys
+        buckets = sum_by_key(F, pts, k_sorted, idx, g << c)
+        del k_sorted, idx
+        partials = torch.empty((g * n_seg * 2, words), dtype=torch.int64,
+                               device=dev)
+        cuda_build.check(lib.merlin_bn_bucket_reduce(
+            F.g2, _vp(buckets.data_ptr()), g, c, seg_bits,
+            _vp(partials.data_ptr()), stream), "bn254 msm bucket reduce")
+        cuda_build.count(LAUNCHES, SHAPES, "bucket_reduce", shape)
+        cuda_build.check(lib.merlin_bn_window_reduce(
+            F.g2, _vp(partials.data_ptr()), g, n_seg, seg_bits,
+            _vp(wsums[w0:w0 + g].data_ptr()), stream),
+            "bn254 msm window reduce")
+        cuda_build.count(LAUNCHES, SHAPES, "window_reduce", shape)
+        del buckets, partials
     out = torch.empty((1, words), dtype=torch.int64, device=dev)
     cuda_build.check(lib.merlin_bn_window_combine(
         F.g2, _vp(wsums.data_ptr()), nw, c, _vp(out.data_ptr()), stream),
@@ -253,8 +271,8 @@ def run_sums_plain(F, x: torch.Tensor, keys: torch.Tensor):
         def add(a, b):
             return bf.add16(FR, a, b)
 
-        def sel(m, a, b):
-            return torch.where(m[:, None], a, b)
+        def put(t, i, u):
+            return t.index_put((i,), u)
     else:
         v = curve.split_point(F, curve.unpack(F, x))
 
@@ -264,8 +282,8 @@ def run_sums_plain(F, x: torch.Tensor, keys: torch.Tensor):
         def add(a, b):
             return curve.add16(F, a, b)
 
-        def sel(m, a, b):
-            return curve._sel(F, m, a, b)
+        def put(p, i, u):
+            return _leaf_map(F, lambda a, b: a.index_put((i,), b), p, u)
     while True:
         e = keys.shape[0]
         first = torch.ones(e, dtype=torch.bool, device=keys.device)
@@ -279,7 +297,9 @@ def run_sums_plain(F, x: torch.Tensor, keys: torch.Tensor):
         partner = torch.clamp(even + 1, max=e - 1)
         has_next = (even + 1 < e) & (keys[partner] == keys[even])
         left = take(v, even)
-        v = sel(has_next, add(left, take(v, partner)), left)
+        # an entry with a partner in its run adds it; a single one stays
+        pair = torch.nonzero(has_next).reshape(-1)
+        v = put(left, pair, add(take(left, pair), take(v, partner[pair])))
         keys = keys[even]
     if F is None:
         return bf.from16(v), keys
@@ -302,7 +322,7 @@ def _tree_sum16(F, pts: Point) -> Point:
     return _leaf_map(F, lambda a: a[..., 0, :], pts)
 
 
-def msm_plain(F, points: Point, scalars: torch.Tensor, bits: int = 254,
+def msm_plain(F, points, scalars: torch.Tensor, bits: int = 254,
               c: int = None) -> Point:
     n = scalars.shape[0]
     if c is None:
@@ -310,21 +330,20 @@ def msm_plain(F, points: Point, scalars: torch.Tensor, bits: int = 254,
     nw = -(-bits // c)
     dev = scalars.device
     k_sorted, idx = _sorted_entries(_digit_keys(scalars, c, nw, bits), n)
-    sums, skeys = run_sums_plain(F, curve.pack(F, points)[idx], k_sorted)
+    sums, skeys = run_sums_plain(F, _packed(F, points)[idx], k_sorted)
     words = identity_words(F, nw << c, dev)
     words[skeys] = sums
     buckets = _leaf_map(F, lambda a: a.reshape(nw, 1 << c, bf.N16),
                         curve.split_point(F, curve.unpack(F, words)))
-    # W_w = sum_k 2^k S_k, S_k = the sum of the buckets whose index has bit k
-    b = torch.arange(1 << c, device=dev)
-    has_bit = ((b[None, :] >> torch.arange(c, device=dev)[:, None]) & 1
-               ).bool()                                           # (c, 2^c)
-    terms = curve._sel(
-        F, has_bit[None].expand(nw, c, 1 << c),
-        _leaf_map(F, lambda a: a[:, None].expand(nw, c, 1 << c, bf.N16),
-                  buckets),
-        curve._inf16(F, (nw, c, 1 << c), dev))
-    s = _tree_sum16(F, terms)                                     # (nw, c)
+    # W_w = sum_k 2^k S_k, S_k = the sum of the buckets whose index has bit
+    # k: the odd nodes of level k of a binary tree over the buckets (node j
+    # of level k sums buckets j 2^k .. (j + 1) 2^k - 1)
+    level, s_k = buckets, []
+    for _ in range(c):
+        odd = _leaf_map(F, lambda a: a[:, 1::2], level)
+        s_k.append(_tree_sum16(F, odd))
+        level = curve.add16(F, _leaf_map(F, lambda a: a[:, 0::2], level), odd)
+    s = _leaf_map(F, lambda *a: torch.stack(a, dim=1), *s_k)      # (nw, c)
     wsum = _leaf_map(F, lambda a: a[:, c - 1], s)
     for k in range(c - 2, -1, -1):
         wsum = curve.add16(F, curve.double16(F, wsum),
@@ -339,11 +358,12 @@ def msm_plain(F, points: Point, scalars: torch.Tensor, bits: int = 254,
     return curve.join_point(F, acc)
 
 
-def msm(F, points: Point, scalars: torch.Tensor, bits: int = 254,
+def msm(F, points, scalars: torch.Tensor, bits: int = 254,
         c: int = None) -> Point:
     """Sum of scalars[i] * points[i].
 
-    points: Point with (N, ...) field leaves; scalars: (N, 4) int64 limbs
+    points: Point with (N, ...) field leaves, or its (N, W) packed words
+    (``curve.pack``); scalars: (N, 4) int64 limbs
     of plain integers (not Montgomery).  Returns one Point."""
     n = scalars.shape[0]
     if c is None:

@@ -59,7 +59,9 @@ def test_port_has_every_expected_module():
                 "stark.merkle_bn128", "stark.prover_bn128", "snark.curve",
                 "snark.fft", "snark.msm", "snark.setup", "snark.groth16",
                 "snark.pairing", "snark.binfile", "recursion.final_circuit",
-                "recursion.final", "tools.bn254_times"):
+                "recursion.final", "tools.bn254_times", "utils.keccak",
+                "snark.fflonk", "snark.r1cs_to_plonk",
+                "ops.bn254_fflonk_cuda", "tools.fflonk_times"):
         assert f"merlin_zkevm_prover_tpu_torch.{sub}" in names
 
 

@@ -681,9 +681,26 @@ def jax_tree_to_numpy(p):
     return jax.tree_util.tree_map(np.asarray, p)
 
 
-def test_final_stage_refuses_fflonk():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FinalStage(None, 0, protocol="fflonk")
+def test_final_stage_refuses_fflonk(monkeypatch):
+    """FinalStage(protocol="fflonk") is ported (tests/test_torch_fflonk.py
+    proves through it); what it refuses is a PLONK form whose 4n domain
+    exceeds Fr's two-adicity (the production final R1CS counts n = 2^27),
+    with a ValueError before the PLONK build and the setup."""
+    from merlin_zkevm_prover_tpu_torch.snark import r1cs_to_plonk as prt
+
+    stage = FinalStage(None, 0, protocol="fflonk", device="cpu")
+    assert stage.protocol == "fflonk" and stage.key is None
+
+    def never(*_a, **_k):
+        raise AssertionError("built past the domain check")
+
+    big = port_setup.R1CS(n_vars=1, n_public=0, a=[], b=[], c=[])
+    monkeypatch.setattr(prt, "constraint_gates",
+                        lambda r1cs: np.array([(1 << 26) + 1]))
+    monkeypatch.setattr(prt, "r1cs_to_plonk", never)
+    with pytest.raises(ValueError, match="two-adicity"):
+        stage._prove_fflonk(big, [1])
+    assert stage.key is None and stage.stats["plonk_n"] == 1 << 27
 
 
 # ---------------------------------------------------------------------------
