@@ -97,8 +97,14 @@ and the exit code is non-zero unless every phase passed):
            proportion of ranges; each MSM at its full point count and
            window, every scalar 0 but the first and last 4096, against the
            twin on those 8192 at the same window, its largest bucket over
-           three range passes); one 2^12-row BN254 tree against the host
-           MerkleTreeBN128
+           three range passes; B4 launched on all of a logged count's
+           scalars, its first and last 512 results held); one 2^12-row
+           BN254 tree against the host MerkleTreeBN128; the edges: B4 in
+           G1 and G2 at scalars 0, 1, r - 1, r, 2^k, r - 2^k, 2^256 - 1, a
+           carry into the top window, digits at +-2^(w-1) and walks whose
+           accumulator meets +-the point it adds, against the twin and
+           python ints; B1's leaves at every last-chunk width t = 2..17
+           and at row widths 1-5, 47-49, 105 and 665
   golden_final  the n_bits 3 recursiveF proof and its Groth16 proof (the
            golden file's setup seed and fixed blinding) proven on the card
            equal tests/data/torch_bn128_proof.json and
@@ -119,16 +125,18 @@ and the exit code is non-zero unless every phase passed):
   fflonk_holds  F1-F3 against their twins, exactly, at every distinct
            shape phase fflonk launched them at; B3 at full random scalars
            at every commitment's point count (against [sum s_i tau^i] G in
-           python ints) and, at the largest, against msm_plain
+           python ints) and, at the largest, against msm_plain; B4 (the
+           SRS) launched at every scalar count of the phase, full random
+           scalars, its first and last 512 results against its twin
 
 Each path (permute, each golden proof, prove, prove_vm, each recursion
 stage, the final hop, the golden final hop, each fflonk case) is driven with every launch
 counter set to 0 just before it and read just after.  Each phase's line
 carries ``t_s``, the seconds since the script started.
 
-Output: one JSON object per line.  An early line (phase
-``poseidon_build``) gives each Poseidon kernel's registers and spills from
-the build log; the ``prove`` line gives the node-hash launches per kernel
+Output: one JSON object per line.  Early lines (phases
+``poseidon_build``, ``ntt_build``, ``bn254_build``) give each kernel's
+registers, stack and spills from the build log; the ``prove`` line gives the node-hash launches per kernel
 variant.  The line before the last lists every
 kernel (K1 to K6, and vm_run, B1-B4 and F1-F3, which have no Pallas
 counterpart)
@@ -528,6 +536,8 @@ def main() -> int:
         k: v for k, v in sorted(res.items()) if k.startswith("pg_")}})
     emit({"phase": "ntt_build", "kernels": {
         k: v for k, v in sorted(res.items()) if k.startswith("ntt_")}})
+    emit({"phase": "bn254_build", "kernels": {
+        k: v for k, v in sorted(res.items()) if k.startswith("bn_")}})
 
     # ----------------------------------------------------------------- kernels
     checks = []
@@ -1443,13 +1453,14 @@ def main() -> int:
     # B3 and B4.  The hop runs under torch.profiler (device activity only):
     # each BN254 kernel's own device time is summed by kernel.
     bn_kernel_of = {
-        "bn_poseidon_leaf_kernel": "B1", "bn_poseidon_node_kernel": "B1",
+        "bn_poseidon_words_kernel": "B1", "bn_poseidon_sponge_kernel": "B1",
+        "bn_poseidon_node_kernel": "B1",
         "bn_fr_bitrev_kernel": "B2", "bn_fr_ntt_stage_kernel": "B2",
         "bn_mont_mul_kernel": "B2", "bn_fr_mul_sub_kernel": "B2",
         "bn_fr_powers_kernel": "B2", "bn_msm_digits_kernel": "B3",
         "bn_sum_ranges_kernel": "B3", "bn_bucket_reduce_kernel": "B3",
         "bn_window_reduce_kernel": "B3", "bn_window_combine_kernel": "B3",
-        "bn_double_table_kernel": "B4", "bn_fixed_base_kernel": "B4"}
+        "bn_fixed_base_kernel": "B4"}
 
     def bn_device_ms(prof) -> dict:
         """Each BN254 kernel's device ms and launches in a profile, by
@@ -1510,6 +1521,8 @@ def main() -> int:
                                  "was accepted")
         del bad, trace_f, circ
         stage = FinalStage(info_f, root_f[0], keep_r1cs=True)
+        for k in bn_curve.FB_TABLE_BUILDS:
+            bn_curve.FB_TABLE_BUILDS[k] = 0
         g16 = stage.prove(pf, timer=tlog)
         torch.cuda.synchronize()
         total = time.time() - t0
@@ -1541,6 +1554,10 @@ def main() -> int:
                                       "poseidon_rows": lay_f.n_pos_rows},
                            "circuit": circ_stats(lay_f, air_f)},
             "r1cs": stage.stats, "total_s": total, "spans_s": spans,
+            # FINAL_SETUP's pieces, each ended by a synchronize, and B4's
+            # tables built on the host within them
+            "setup_spans_s": stage.setup_spans,
+            "fixed_base_tables": dict(bn_curve.FB_TABLE_BUILDS),
             "span_peak_bytes": dict(tlog.peaks),
             "peak_memory_bytes": max(tlog.peaks.values()),
             "host_max_rss_bytes": resource.getrusage(
@@ -1650,19 +1667,31 @@ def main() -> int:
             raise AssertionError(f"final_holds: {res} held fewer than three "
                                  "range passes")
         torch.cuda.empty_cache()
-    # B4 on the first and last 512 scalars: its twin's cost is sequential
-    # (254 doublings a result, ~4 s) plus a tree of adds over scalars x 254
-    # bits, launch-bound plain arithmetic
+    # B4 launched at each logged scalar count, held on the first and last
+    # 512 results: its twin's cost is sequential (254 doublings a result,
+    # ~4 s) plus a tree of adds over scalars x 254 bits, launch-bound plain
+    # arithmetic
     cap_pts = 512
     for (group, n) in sorted(fin_shapes["fixed_base"]):
         F_ = group_of[group]
-        m_ = min(n, 2 * cap_pts)
-        base = bn_curve.g2_generator(dev) if group == "G2" else \
-            bn_curve.g1_generator(dev)
-        res = bnt.hold_fixed_base(
-            F_, base, bnt.field_elems(bf.FR, m_, gen_bn, dev), cap_pts)
-        bn_hold("B4", {**res, "n": n})
-    torch.cuda.empty_cache()
+        bn_hold("B4", bnt.hold_fixed_base(
+            F_, bnt._one_gen(F_, dev), bnt.field_elems(bf.FR, n, gen_bn, dev),
+            cap_pts))
+        torch.cuda.empty_cache()
+    # the edges: B4 at scalars 0, 1, r - 1, r, 2^k, r - 2^k, 2^256 - 1, a
+    # carry into the top window, digits at +-2^(w-1) and the walks that meet
+    # +-the point they add (bnt.edge_scalars), in G1 and G2 at both digit
+    # widths, against the twin (and in G1 at FB_WINDOW python ints); B1's
+    # leaves at every last-chunk width t = 2..17 (alone or after a full
+    # chunk) and at widths 1-5, 47-49, 105, 665
+    for F_ in (bn_curve.F1, bn_curve.F2):
+        for w_ in (bn_curve.FB_WINDOW, bn_curve.FB_WINDOW_SMALL):
+            bn_hold("B4", bnt.hold_fixed_base_edges(
+                F_, w_, dev, ints=F_ is bn_curve.F1 and
+                w_ == bn_curve.FB_WINDOW))
+    for res in bnt.hold_leaves([(130, w_) for w_ in bnt.leaf_edge_widths()],
+                               gen_bn, dev):
+        bn_hold("B1", {**res, "edge": True})
     emit({"phase": "final_holds", "mismatches": 0, "holds": bn_holds})
 
     # ---------------------------------------- times at the paths' shapes
@@ -1979,10 +2008,12 @@ def main() -> int:
              time_ms(lambda: pbc.leaf_hash(rows1), 1),
              once_ms(lambda: pbc.leaf_hash_plain(ends1)),
              bnt.bound_leaf(h1, w1), plain_held=[ends1.shape[0], w1],
+             bound_ms_cios=bnt.bound_leaf_cios(h1, w1)[0],
              node_shape=[n1], node_ms=time_ms(lambda: pbc.node_hash(lvl1), 1),
              node_plain_ms=once_ms(lambda: pbc.node_hash_plain(
                  lvl1[:16 * cap])), node_plain_held=[16 * cap],
              node_bound_ms=bnt.bound_node(n1)[0],
+             node_bound_ms_cios=bnt.bound_node_cios(n1)[0],
              also_replaces="merlin_zkevm_prover_tpu/stark/merkle_bn128.py:22")
     del rows1, ends1, lvl1
     torch.cuda.empty_cache()
@@ -2014,13 +2045,15 @@ def main() -> int:
     sub4 = torch.cat([torch.arange(cap_pts), torch.arange(n3 - cap_pts, n3)]
                      ).to(dev)
     g1_ = bn_curve.g1_generator(dev)
-    bn_entry("B4", "bn254_fixed_base", "bn254_msm.cu", "snark/curve.py:269",
+    bn_entry("B4", "bn254_fixed_base", "bn254_fixed_base.cu",
+             "snark/curve.py:269",
              [n3], time_ms(lambda: bn_curve.scalar_mul_table(bn_curve.F1, g1_,
                                                              s4), 2),
              once_ms(lambda: bn_curve.scalar_mul_table_plain(
                  bn_curve.F1, g1_, s4[sub4])),
              bnt.bound_fixed_base(bn_curve.F1, s4), plain_held=[2 * cap_pts],
-             group="G1")
+             bound_ms_set_bits=bnt.bound_fixed_base_set_bits(bn_curve.F1, s4)[0],
+             group="G1", w=bn_curve.FB_WINDOW)
     del s4, final_key
     torch.cuda.empty_cache()
     emit({"phase": "final_kernels", "kernels": entries[-4:]})
@@ -2105,7 +2138,7 @@ def main() -> int:
     t_ff = time.time()
 
     def keep_shapes():
-        for shapes in (ffk.SHAPES, bn_msm.SHAPES):
+        for shapes in (ffk.SHAPES, bn_msm.SHAPES, bn_curve.SHAPES):
             for k, v in shapes.items():
                 rec_ = ff_shapes.setdefault(k, {})
                 for s_, c_ in v.items():
@@ -2138,7 +2171,8 @@ def main() -> int:
         launches_ = {"F": dict(ffk.LAUNCHES), **{
             b: d for b, d in read_bn_counters().items() if b != "B1"}}
         keep_shapes()
-        shapes_ = {k: dict(v) for s_ in (ffk.SHAPES, bn_msm.SHAPES)
+        shapes_ = {k: dict(v) for s_ in (ffk.SHAPES, bn_msm.SHAPES,
+                                          bn_curve.SHAPES)
                    for k, v in s_.items()}
         by_kernel = fft_.kernel_device_ms(prof)
         del prof
@@ -2280,7 +2314,7 @@ def main() -> int:
     # largest, with full scalars on the first and last 4096 points and zero
     # between, against msm_plain on those at the same window.
     ff_holds = []
-    ff_worst = {"F1": 0, "F2": 0, "F3": 0, "B3": 0}
+    ff_worst = {"F1": 0, "F2": 0, "F3": 0, "B3": 0, "B4": 0}
 
     def ff_hold(kid, res):
         res = {**res, "kernel_id": kid}
@@ -2305,6 +2339,14 @@ def main() -> int:
                        if grp == "G1")
     for n in g1_counts:
         ff_hold("B3", fft_.hold_commit_full(srs_c, tau_c, n, gen_ff, dev))
+        torch.cuda.empty_cache()
+    # B4 (the SRS) launched at every scalar count of the phase, full random
+    # scalars, its first and last 512 results held against the twin
+    for (grp, n) in sorted(ff_shapes.get("fixed_base", {})):
+        F_ = bn_curve.F2 if grp == "G2" else bn_curve.F1
+        ff_hold("B4", bnt.hold_fixed_base(
+            F_, bnt._one_gen(F_, dev), bnt.field_elems(bf.FR, n, gen_ff, dev),
+            512))
         torch.cuda.empty_cache()
     n_big = g1_counts[-1]
     s_big = torch.zeros((n_big, 4), dtype=torch.int64, device=dev)

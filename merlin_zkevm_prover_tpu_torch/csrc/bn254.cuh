@@ -14,10 +14,18 @@
 // add.cc / addc, sub.cc / subc), each chain inside one asm statement, where
 // the carry flag is defined.
 //
+// Lazy reduction (B1's mixes): bn_mul_wide gives the 512-bit product of two
+// 256-bit values, bn_add9 adds one into a 9-word sum, bn_redc9 reduces such
+// a sum (below 2^514) once: (T + m * mod) / 2^256 for the m that clears the
+// low words, then bn_reduce_256 brings any value below 2^256 into [0, mod)
+// by conditional subtractions of 4 mod, 2 mod and mod (2^256 < 8 mod).
+//
 // Points: Jacobian (X, Y, Z), Z = 0 is infinity (written (1, 1, 0) by
 // pt_inf).  pt_add is complete as the reference's select form
 // (snark/curve.py:184-212): infinity on either side, equal points (the
-// doubling), opposite points (infinity).
+// doubling), opposite points (infinity).  pt_madd (B4) adds an affine point
+// to a Jacobian one, inline: 11 products against pt_add's 16, complete but
+// for infinity on the Jacobian side, which its caller keeps apart.
 #pragma once
 #include <stdint.h>
 
@@ -189,19 +197,87 @@ __device__ __forceinline__ void sub_mod(uint64_t* r, const uint64_t* a,
     bn_copy(r, d);
 }
 
-// in: any value in [0, 2^256).  out: the value mod m (2^256 / m < 6: at
-// most five subtractions).
+// r -= k * mod if r >= k * mod, for k * mod < 2^256 (k = 1, 2, 4)
+template <class P, int K>
+__device__ __forceinline__ void bn_csub_mod(uint64_t* r) {
+    constexpr int s = K == 4 ? 2 : K == 2 ? 1 : 0;
+    uint64_t m[4], d[4];
+    m[0] = P::M0 << s;
+    m[1] = s ? (P::M1 << s) | (P::M0 >> (64 - s)) : P::M1;
+    m[2] = s ? (P::M2 << s) | (P::M1 >> (64 - s)) : P::M2;
+    m[3] = s ? (P::M3 << s) | (P::M2 >> (64 - s)) : P::M3;
+    if (bn_sub4(d, r, m) == 0) bn_copy(r, d);
+}
+
+// in: any value in [0, 2^256).  out: the value mod m, without branches that
+// depend on how many subtractions a value needs.
 template <class P>
-__device__ __forceinline__ void bn_reduce_full(uint64_t* r, const uint64_t* a) {
-    uint64_t x[4], m[4], d[4];
-    bn_copy(x, a);
-    bn_mod<P>(m);
-#pragma unroll 1
-    for (int k = 0; k < 6; ++k) {
-        if (bn_sub4(d, x, m) != 0) break;
-        bn_copy(x, d);
+__device__ __forceinline__ void bn_reduce_256(uint64_t* r) {
+    bn_csub_mod<P, 4>(r);
+    bn_csub_mod<P, 2>(r);
+    bn_csub_mod<P, 1>(r);
+}
+
+// p (8 words) = a * b, a and b any values below 2^256
+__device__ __forceinline__ void bn_mul_wide(uint64_t* p, const uint64_t* a,
+                                            const uint64_t* b) {
+    uint64_t c;
+    p[0] = bn_madd(a[0], b[0], 0, 0, c);
+    p[1] = bn_madd(a[0], b[1], c, 0, c);
+    p[2] = bn_madd(a[0], b[2], c, 0, c);
+    p[3] = bn_madd(a[0], b[3], c, 0, c);
+    p[4] = c;
+#pragma unroll
+    for (int i = 1; i < 4; ++i) {
+        p[i] = bn_madd(a[i], b[0], p[i], 0, c);
+        p[i + 1] = bn_madd(a[i], b[1], p[i + 1], c, c);
+        p[i + 2] = bn_madd(a[i], b[2], p[i + 2], c, c);
+        p[i + 3] = bn_madd(a[i], b[3], p[i + 3], c, c);
+        p[i + 4] = c;
     }
-    bn_copy(r, x);
+}
+
+// acc (9 words) += p (8 words)
+__device__ __forceinline__ void bn_add9(uint64_t* acc, const uint64_t* p) {
+    asm("{\n\t"
+        "add.cc.u64 %0, %0, %9;\n\t"
+        "addc.cc.u64 %1, %1, %10;\n\t"
+        "addc.cc.u64 %2, %2, %11;\n\t"
+        "addc.cc.u64 %3, %3, %12;\n\t"
+        "addc.cc.u64 %4, %4, %13;\n\t"
+        "addc.cc.u64 %5, %5, %14;\n\t"
+        "addc.cc.u64 %6, %6, %15;\n\t"
+        "addc.cc.u64 %7, %7, %16;\n\t"
+        "addc.u64 %8, %8, 0;\n\t"
+        "}"
+        : "+l"(acc[0]), "+l"(acc[1]), "+l"(acc[2]), "+l"(acc[3]),
+          "+l"(acc[4]), "+l"(acc[5]), "+l"(acc[6]), "+l"(acc[7]),
+          "+l"(acc[8])
+        : "l"(p[0]), "l"(p[1]), "l"(p[2]), "l"(p[3]), "l"(p[4]), "l"(p[5]),
+          "l"(p[6]), "l"(p[7]));
+}
+
+// in: t (9 words, clobbered) with t / 2^256 + mod < 2^256 (a sum of up to
+// 17 products of canonical values: t / 2^256 + mod < 4.2 mod).  out:
+// t / 2^256 mod m, canonical.  20 64-bit products, once for a whole sum.
+template <class P>
+__device__ __forceinline__ void bn_redc9(uint64_t* r, uint64_t* t) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const uint64_t m = t[i] * P::NINV;
+        uint64_t c;
+        (void)bn_madd(m, P::M0, t[i], 0, c);  // the low word is 0 by m's choice
+        t[i + 1] = bn_madd(m, P::M1, t[i + 1], c, c);
+        t[i + 2] = bn_madd(m, P::M2, t[i + 2], c, c);
+        t[i + 3] = bn_madd(m, P::M3, t[i + 3], c, c);
+#pragma unroll
+        for (int k = i + 4; k < 9; ++k) {
+            t[k] += c;
+            c = t[k] < c;
+        }
+    }
+    r[0] = t[4]; r[1] = t[5]; r[2] = t[6]; r[3] = t[7];  // t[8] is 0
+    bn_reduce_256<P>(r);
 }
 
 // ---------------------------------------------------------------------------
@@ -222,6 +298,10 @@ __device__ __forceinline__ void f_sub(Fq& r, const Fq& a, const Fq& b) { sub_mod
 __device__ __forceinline__ bool f_is_zero(const Fq& a) { return bn_is_zero(a.v); }
 __device__ __forceinline__ void f_set_zero(Fq& r) { bn_zero(r.v); }
 __device__ __forceinline__ void f_set_one(Fq& r) { bn_one<FqP>(r.v); }
+__device__ __forceinline__ void f_neg(Fq& r, const Fq& a) {
+    const uint64_t zero[4] = {0, 0, 0, 0};
+    sub_mod<FqP>(r.v, zero, a.v);
+}
 __device__ __forceinline__ void f_load(Fq& r, const uint64_t* p) { bn_copy(r.v, p); }
 __device__ __forceinline__ void f_store(uint64_t* p, const Fq& a) { bn_copy(p, a.v); }
 
@@ -247,6 +327,11 @@ __device__ __forceinline__ void f_sub(Fq2& r, const Fq2& a, const Fq2& b) {
 }
 __device__ __forceinline__ bool f_is_zero(const Fq2& a) {
     return bn_is_zero(a.c0) && bn_is_zero(a.c1);
+}
+__device__ __forceinline__ void f_neg(Fq2& r, const Fq2& a) {
+    const uint64_t zero[4] = {0, 0, 0, 0};
+    sub_mod<FqP>(r.c0, zero, a.c0);
+    sub_mod<FqP>(r.c1, zero, a.c1);
 }
 __device__ __forceinline__ void f_set_zero(Fq2& r) { bn_zero(r.c0); bn_zero(r.c1); }
 __device__ __forceinline__ void f_set_one(Fq2& r) { bn_one<FqP>(r.c0); bn_zero(r.c1); }
@@ -382,4 +467,85 @@ __device__ __noinline__ void pt_add(Pt<F>& r, const Pt<F>& p, const Pt<F>& q) {
     r.x = x3;
     r.y = y3;
     r.z = z3;
+}
+
+// The doubling of pt_dbl (dbl-2009-l), for B4's rare case of an
+// accumulator equal to the point it adds: out of line and by value, so
+// that its temporaries do not count against the walk's registers and the
+// point needs no address (pt_dbl stays as it is for B3).  p is not
+// infinity.
+template <class F>
+__device__ __noinline__ Pt<F> pt_dbl_value(Pt<F> p) {
+    F a, b, c, t, d, e, f;
+    f_mul(a, p.x, p.x);
+    f_mul(b, p.y, p.y);
+    f_mul(c, b, b);
+    f_add(t, p.x, b);
+    f_mul(t, t, t);
+    f_sub(t, t, a);
+    f_sub(t, t, c);
+    f_add(d, t, t);
+    f_add(e, a, a);
+    f_add(e, e, a);
+    f_mul(f, e, e);
+    f_mul(p.z, p.y, p.z);
+    f_add(p.z, p.z, p.z);
+    f_add(p.x, d, d);
+    f_sub(p.x, f, p.x);
+    f_add(c, c, c);
+    f_add(c, c, c);
+    f_add(c, c, c);
+    f_sub(t, d, p.x);
+    f_mul(p.y, e, t);
+    f_sub(p.y, p.y, c);
+    return p;
+}
+
+// p += (x2, +-y2), the affine point at e (x2 then y2, Montgomery form),
+// y2 negated where neg (madd-2004-hmv: 8 products and 3 squarings), in
+// place and inline; x2 and y2 are read where they are first used, so that
+// neither is live across the other's products.  p is not infinity.
+// Complete: p equal to the point gives the doubling, p opposite to it
+// infinity.  Returns true when the sum is infinity (p is then left as it
+// was).
+template <class F>
+__device__ __forceinline__ bool pt_madd(Pt<F>& p, const uint64_t* e, bool neg) {
+    constexpr int W = PtWords<F>::N / 3;
+    F t1, t2;
+    f_mul(t1, p.z, p.z);        // Z1^2
+    f_mul(t2, t1, p.z);         // Z1^3
+    {
+        F x2;
+        f_load(x2, e);
+        f_mul(t1, t1, x2);      // U2 = x2 Z1^2
+    }
+    {
+        F y2;
+        f_load(y2, e + W);
+        if (neg) f_neg(y2, y2);
+        f_mul(t2, t2, y2);      // S2 = y2 Z1^3
+    }
+    f_sub(t1, t1, p.x);         // H = U2 - X1
+    f_sub(t2, t2, p.y);         // R = S2 - Y1
+    if (f_is_zero(t1)) {
+        if (f_is_zero(t2)) {
+            p = pt_dbl_value(p);
+            return false;
+        }
+        return true;
+    }
+    F t3, t4;
+    f_mul(p.z, p.z, t1);        // Z3 = Z1 H
+    f_mul(t4, t1, t1);          // H^2
+    f_mul(t3, t4, t1);          // H^3
+    f_mul(t4, t4, p.x);         // V = X1 H^2
+    f_mul(p.x, t2, t2);         // R^2
+    f_sub(p.x, p.x, t3);
+    f_sub(p.x, p.x, t4);
+    f_sub(p.x, p.x, t4);        // X3 = R^2 - H^3 - 2 V
+    f_sub(t4, t4, p.x);
+    f_mul(t4, t2, t4);          // R (V - X3)
+    f_mul(t3, p.y, t3);         // Y1 H^3
+    f_sub(p.y, t4, t3);         // Y3
+    return false;
 }

@@ -1,10 +1,10 @@
-// Kernels B3 (Pippenger multi-scalar multiplication) and B4 (fixed-base
-// scalar multiplication) over G1 (Fq) and G2 (Fq2), Jacobian points.
+// Kernel B3 (Pippenger multi-scalar multiplication) over G1 (Fq) and G2
+// (Fq2), Jacobian points; B4 is in bn254_fixed_base.cu.
 //
-// Replace no TPU kernel: the JAX package runs snark/msm.py:57-131 and
-// snark/curve.py:269-312 as jnp lax.scans over 16-bit limbs.  Bound:
-// operations (a complete G1 addition is 16 Montgomery products of 36 64-bit
-// products; a G2 one about three times that); a point is 96 or 192 bytes.
+// Replaces no TPU kernel: the JAX package runs snark/msm.py:57-131 as jnp
+// lax.scans over 16-bit limbs.  Bound: operations (a complete G1 addition
+// is 16 Montgomery products of 36 64-bit products; a G2 one three times
+// that); a point is 96 or 192 bytes.
 //
 // B3, with c-bit windows (snark/msm.py drives them in this order):
 //   bn_msm_digits: one thread per (window, scalar) of a group of windows
@@ -23,11 +23,8 @@
 //   bn_window_reduce: one thread per window: sum_b b B_b =
 //     sum A - sum R + 2^seg_bits * sum_s s R_s (the last by a running sum);
 //   bn_window_combine: one thread: acc = 2^c acc + W_w from the top window.
-// B4: bn_double_table (one thread: 2^k P for k < 256) and bn_fixed_base
-//   (one thread per scalar: the sum of 2^k P over the scalar's set bits,
-//   the reference's double-and-add scan read as a sum).
 // Scalars are plain integers, (n, 4) 64-bit limbs.  No more than right and
-// simple: one thread per range, point or scalar.
+// simple: one thread per range, point or window.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -180,39 +177,6 @@ __global__ void bn_window_combine_kernel(const uint64_t* __restrict__ wsums,
     pt_store(out, acc);
 }
 
-template <class F>
-__global__ void bn_double_table_kernel(const uint64_t* __restrict__ base,
-                                       uint64_t* __restrict__ table) {
-    constexpr int N = PtWords<F>::N;
-    if (blockIdx.x != 0 || threadIdx.x != 0) return;
-    Pt<F> p;
-    pt_load(p, base);
-#pragma unroll 1
-    for (int k = 0; k < 256; ++k) {
-        pt_store(table + N * k, p);
-        pt_dbl(p, p);
-    }
-}
-
-template <class F>
-__global__ void bn_fixed_base_kernel(const uint64_t* __restrict__ table,
-                                     const uint64_t* __restrict__ scalars,
-                                     long long n, uint64_t* __restrict__ out) {
-    constexpr int N = PtWords<F>::N;
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    Pt<F> acc, p;
-    pt_inf(acc);
-#pragma unroll 1
-    for (int k = 0; k < 256; ++k) {
-        if ((scalars[4 * i + (k >> 6)] >> (k & 63)) & 1ull) {
-            pt_load(p, table + N * k);
-            pt_add(acc, acc, p);
-        }
-    }
-    pt_store(out + N * i, acc);
-}
-
 extern "C" int merlin_bn_msm_digits(const void* scalars, long long n, int c,
                                     int w0, int nw, int bits, void* keys,
                                     void* stream) {
@@ -292,31 +256,5 @@ extern "C" int merlin_bn_window_combine(int g2, const void* wsums, int nw, int c
     else
         bn_window_combine_kernel<Fq><<<1, 1, 0, (cudaStream_t)stream>>>(
             (const uint64_t*)wsums, nw, c, (uint64_t*)out);
-    return (int)cudaGetLastError();
-}
-
-extern "C" int merlin_bn_double_table(int g2, const void* base, void* table,
-                                      void* stream) {
-    if (g2)
-        bn_double_table_kernel<Fq2><<<1, 1, 0, (cudaStream_t)stream>>>(
-            (const uint64_t*)base, (uint64_t*)table);
-    else
-        bn_double_table_kernel<Fq><<<1, 1, 0, (cudaStream_t)stream>>>(
-            (const uint64_t*)base, (uint64_t*)table);
-    return (int)cudaGetLastError();
-}
-
-extern "C" int merlin_bn_fixed_base(int g2, const void* table,
-                                    const void* scalars, long long n, void* out,
-                                    void* stream) {
-    if (n <= 0) return 0;
-    if (g2)
-        bn_fixed_base_kernel<Fq2><<<msm_blocks(n), BN_MSM_THREADS, 0,
-                                    (cudaStream_t)stream>>>(
-            (const uint64_t*)table, (const uint64_t*)scalars, n, (uint64_t*)out);
-    else
-        bn_fixed_base_kernel<Fq><<<msm_blocks(n), BN_MSM_THREADS, 0,
-                                   (cudaStream_t)stream>>>(
-            (const uint64_t*)table, (const uint64_t*)scalars, n, (uint64_t*)out);
     return (int)cudaGetLastError();
 }

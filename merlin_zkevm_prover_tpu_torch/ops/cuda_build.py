@@ -111,6 +111,29 @@ def build() -> Path:
     return out
 
 
+def variant_csrc(defines) -> Path:
+    """A copy of csrc/ (under build/) with each NAME=VALUE ``#define``
+    rewritten in the one source that has it: the kernels of a variant, to
+    be built by setting ``CSRC`` to it before the first ``lib()``."""
+    tag = "_".join(d.replace("=", "") for d in defines)
+    dst = BUILD_DIR / f"csrc_{tag}"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(CSRC, dst)
+    for d in defines:
+        name, value = d.split("=", 1)
+        hits = 0
+        for src in sorted(dst.glob("*.cu*")):
+            text, n = re.subn(rf"^#define {name} .*$",
+                              f"#define {name} {value}", src.read_text(),
+                              flags=re.M)
+            if n:
+                src.write_text(text)
+                hits += n
+        if hits != 1:
+            raise ValueError(f"no single #define {name} in csrc/")
+    return dst
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
@@ -136,7 +159,9 @@ def lib() -> ctypes.CDLL:
             cdll.merlin_vm_run.restype = ci
             # the BN254 kernels (B1-B4)
             for name, args in (
-                    ("merlin_bn_poseidon_leaf", [vp, ll, ci, vp, vp, vp, vp]),
+                    ("merlin_bn_poseidon_words", [vp, ll, ci, vp, vp]),
+                    ("merlin_bn_poseidon_sponge", [vp, ll, ci, ci, ci, ci, vp,
+                                                   ci, vp, vp, vp, vp]),
                     ("merlin_bn_poseidon_node", [vp, ll, vp, vp, vp, vp]),
                     ("merlin_bn_fr_bitrev", [vp, ll, ci, vp, vp]),
                     ("merlin_bn_fr_ntt_stage", [vp, ll, ci, ci, vp, vp]),
@@ -148,8 +173,7 @@ def lib() -> ctypes.CDLL:
                     ("merlin_bn_bucket_reduce", [ci, vp, ci, ci, ci, vp, vp]),
                     ("merlin_bn_window_reduce", [ci, vp, ci, ci, ci, vp, vp]),
                     ("merlin_bn_window_combine", [ci, vp, ci, ci, vp, vp]),
-                    ("merlin_bn_double_table", [ci, vp, vp, vp]),
-                    ("merlin_bn_fixed_base", [ci, vp, vp, ll, vp, vp]),
+                    ("merlin_bn_fixed_base", [ci, vp, vp, ll, ci, vp, vp]),
                     # the fflonk kernels (F1-F3)
                     ("merlin_bn_fr_scan", [vp, ll, ll, ll, ci, ci, vp, vp, vp]),
                     ("merlin_bn_fr_scan_carry", [vp, ll, ll, ll, ci, ci, vp, vp]),
@@ -163,19 +187,46 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
+def _template_args(s: str, k: int):
+    """The template arguments of a mangled name from s[k] == "I": (their
+    plain forms, the index past the closing "E")."""
+    k += 1
+    out = []
+    while s[k] != "E":
+        lit = re.match(r"L[ib](\d+)E", s[k:])
+        cls = re.match(r"(\d+)", s[k:])
+        if lit:
+            out.append(lit.group(1))
+            k += lit.end()
+        elif cls:
+            n = int(cls.group(1))
+            arg = s[k + cls.end():k + cls.end() + n]
+            k += cls.end() + n
+            if s[k:k + 1] == "I":
+                sub, k = _template_args(s, k)
+                arg += "<" + ",".join(sub) + ">"
+            out.append(arg)
+        else:
+            raise ValueError(s[k:])
+    return out, k + 1
+
+
 def demangle(name: str) -> str:
     """The plain name of a mangled C++ function name (_Z<len><name>...),
-    with the integer and bool arguments of a template kernel
-    (``ntt_tile_kernel<9,1>``)."""
+    with the integer, bool and class arguments of a template kernel
+    (``ntt_tile_kernel<9,1>``, ``bn_sum_ranges_kernel<Pt<Fq>>``)."""
     m = re.match(r"_Z(\d+)", name)
     if not m:
         return name
     end = m.end() + int(m.group(1))
-    args = re.match(r"I((?:L[ib]\d+E)+)E", name[end:])
-    if not args:
-        return name[m.end():end]
-    return name[m.end():end] + "<" + ",".join(
-        re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
+    plain = name[m.end():end]
+    if name[end:end + 1] != "I":
+        return plain
+    try:
+        args, _ = _template_args(name, end)
+    except (ValueError, IndexError):
+        return plain
+    return plain + "<" + ",".join(args) + ">"
 
 
 def resources(build_log: str) -> dict:

@@ -9,11 +9,14 @@ host would take hours, so the port builds the trees on the card through two
 hand-written kernels in ``csrc/poseidon_bn254.cu``:
 
 ``leaf_hash``  one thread per row of the row-major (H, W) Goldilocks matrix.
-    A row of width <= 4 is its own leaf: ``sum_i w_i 2^(64 i) mod r``.  A
-    wider row is packed three words per Fr element (below 2^192 < r) and
-    sponge-hashed: 16-wide chunks at t = 17 with the capacity carried, the
-    last partial chunk at t = pending + 1 with that width's own tables
-    (``merkleTreeBN128.cpp:88-141``).
+    A row of width <= 4 is its own leaf: ``sum_i w_i 2^(64 i) mod r`` (the
+    words kernel).  A wider row is packed three words per Fr element (below
+    2^192 < r) and sponge-hashed: 16-wide chunks at t = 17 with the
+    capacity carried, the last chunk at t = pending + 1 with that width's
+    own tables (``merkleTreeBN128.cpp:88-141``).  The sponge kernel is
+    compiled for each t, so the full chunks take one launch at t = 17 and
+    the last chunk a second at its own t (one launch where the row has a
+    single chunk), the capacity passed between them in Montgomery form.
 ``node_hash``  one thread per node: ``hash16`` of its 16 children, the
     children past a level's end read as 0 (``get_group_proof`` pads the
     same way).
@@ -22,13 +25,14 @@ Both read the round constants, the sparse partial-round vectors and the two
 matrices of every width from one device table in Montgomery form
 (``_device_tables``).  The values at the kernels' interfaces are plain
 canonical Fr integers as ``(n, 4)`` int64 limbs, the form the host tree and
-the transcript read.  Bound: operations.  A t = 17 permutation is 5,192
-Montgomery products (8 full rounds of 17 S-boxes, 3 products each, and 8
-dense 17 x 17 mixes; 68 partial rounds of one S-box and 33 products), each
-36 64-bit products in the CIOS loop; the bytes moved are a few hundred a
-row.  The kernels are one thread per row or node with the state in local
-memory, and no more (a later PR may share the tables through shared memory
-and schedule the wide products).
+the transcript read.  Bound: operations.  A t = 17 permutation is 5,168
+Montgomery products in the reference's schedule (``mont_products``: 8 full
+rounds of 17 S-boxes, 3 products each, and 8 dense 17 x 17 mixes; 68
+partial rounds of one S-box and 33 products), 36 64-bit products each in
+the CIOS loop.  The kernels reduce each output of a dense mix, and each
+dot product of a partial round, once (``mul64_products`` counts the 64-bit
+products they make: 120,768 at t = 17 against 186,048); the bytes moved
+are a few hundred a row.
 
 Each wrapper takes the plain twin only for a CPU tensor; on a CUDA tensor
 it launches its kernel or raises.  ``LAUNCHES`` counts kernel launches.
@@ -68,6 +72,16 @@ def tables(t: int) -> Tuple[List[int], List[int], List[List[int]],
     """(C, S, M, P, partial rounds) of width t as python ints (the t = 17
     tables equal the inline ones: the loader asserts it)."""
     return _all_t_tables()[t]
+
+
+def mul64_products(t: int) -> int:
+    """64-bit products of one width-t permutation in the kernels' schedule:
+    an S-box is three CIOS products of 36; an output of a dense mix t
+    double-width products of 16 and one reduction of 20; a partial round an
+    S-box, a dot product of t (t * 16 + 20) and t - 1 CIOS updates."""
+    n_p = tables(t)[4]
+    return (N_ROUNDS_F * t * 3 * 36 + N_ROUNDS_F * t * (16 * t + 20)
+            + n_p * (3 * 36 + 16 * t + 20 + (t - 1) * 36))
 
 
 def mont_products(t: int) -> int:
@@ -251,14 +265,40 @@ def leaf_hash(rows: torch.Tensor) -> torch.Tensor:
     out = torch.empty((h, 4), dtype=torch.int64, device=rows.device)
     if h == 0:
         return out
-    data, meta = _device_tables(rows.device)
     lib = cuda_build.lib()
     vp = ctypes.c_void_p
-    cuda_build.check(lib.merlin_bn_poseidon_leaf(
-        vp(rows.data_ptr()), h, w, vp(data.data_ptr()), vp(meta.data_ptr()),
-        vp(out.data_ptr()), vp(cuda_build.stream_ptr())), "bn254 leaf hash")
-    cuda_build.count(LAUNCHES, SHAPES, "leaf", (h, w))
+    stream = vp(cuda_build.stream_ptr())
+    if w <= 4:
+        cuda_build.check(lib.merlin_bn_poseidon_words(
+            vp(rows.data_ptr()), h, w, vp(out.data_ptr()), stream),
+            "bn254 leaf words")
+        cuda_build.count(LAUNCHES, SHAPES, "leaf", (h, w))
+        return out
+    data, meta = _device_tables(rows.device)
+    cap = None
+    plan = sponge_plan(w)
+    for k, (t, first, n_chunks) in enumerate(plan):
+        final = k == len(plan) - 1
+        dst = out if final else torch.empty((h, 4), dtype=torch.int64,
+                                            device=rows.device)
+        cuda_build.check(lib.merlin_bn_poseidon_sponge(
+            vp(rows.data_ptr()), h, w, t, first, n_chunks,
+            vp(cap.data_ptr() if cap is not None else 0), int(final),
+            vp(data.data_ptr()), vp(meta.data_ptr()), vp(dst.data_ptr()),
+            stream), "bn254 leaf sponge")
+        cuda_build.count(LAUNCHES, SHAPES, "leaf", (h, w))
+        cap = dst
     return out
+
+
+def sponge_plan(w: int) -> List[Tuple[int, int, int]]:
+    """The sponge launches of a width-w row (w > 4): (t, first element,
+    chunks) for the full 16-element chunks at t = 17 (when the row has
+    more than one chunk) and for the last chunk at its own t."""
+    n_fr = -(-w // 3)
+    n_full = (n_fr - 1) // ARITY
+    last = [(n_fr - ARITY * n_full + 1, ARITY * n_full, 1)]
+    return ([(ARITY + 1, 0, n_full)] if n_full else []) + last
 
 
 def node_hash(level: torch.Tensor) -> torch.Tensor:

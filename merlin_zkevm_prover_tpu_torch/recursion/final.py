@@ -45,6 +45,7 @@ class FinalStage:
         self.key = None
         self.toxic = None
         self.stats: Dict[str, int] = {}
+        self.setup_spans: Dict[str, float] = {}   # Groth16 setup's pieces
 
     def _prove_fflonk(self, r1cs, witness, rand: Optional[bytes] = None,
                       timer: Optional[TimerLog] = None) -> Dict:
@@ -94,7 +95,7 @@ class FinalStage:
         Groth16 {pi_a, pi_b, pi_c, publics} by the pairing, `r` and `s`
         fixing the blinding (drawn from `secrets` when None), spans
         FINAL_R1CS, FINAL_SETUP (first proof only), FINAL_PROVE and
-        FINAL_PAIRING of `timer`; fflonk {C1, C2, W1, W2, evals, publics},
+        FINAL_PAIRING of `timer` (the setup's pieces in ``setup_spans``); fflonk {C1, C2, W1, W2, evals, publics},
         points as affine python ints, `rand` the blinding's seed bytes
         (``os.urandom`` when None), spans as ``_prove_fflonk``'s."""
         from ..snark.pairing import groth16_verify, make_vk
@@ -110,9 +111,11 @@ class FinalStage:
         if self.protocol == "fflonk":
             return self._prove_fflonk(r1cs, witness, rand=rand, timer=tlog)
         if self.key is None:
+            pieces = TimerLog("final setup", quiet=True)
             with tlog.span("FINAL_SETUP"):
                 self.key, self.toxic = setup(r1cs, seed=self.setup_seed,
-                                             device=self.device)
+                                             device=self.device, timer=pieces)
+            self.setup_spans = pieces.as_dict()
         else:
             assert self.key.n_vars == r1cs.n_vars, \
                 "R1CS shape changed across proofs"

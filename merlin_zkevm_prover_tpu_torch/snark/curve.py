@@ -11,22 +11,28 @@ work on the card); each field product stage of a formula is one batched
 product (``_mul_many``).
 
 ``scalar_mul_table`` (``[e_i] P`` for one base and many scalars, the
-setup's point tables) launches B4 on a CUDA point (``csrc/bn254_msm.cu``:
-the 256 doublings 2^k P once, then one thread a scalar adding the 2^k P of
-its set bits: the reference's double-and-add scan, whose doublings do not
-depend on the scalar); ``scalar_mul_table_plain`` is its twin, the same
-sum added pairwise over the set bits.  ``scalar_mul_words`` gives the
-table packed (the form a large table such as fflonk's SRS keeps), and
-``scalar_mul`` the table of one scalar.
-The scalars' bits are made on the host with numpy (the reference's python
-loop over n x 256 bits takes minutes at n = 4 million).
-``LAUNCHES`` counts B4's launches.
+setup's point tables) launches B4 on a CUDA point
+(``csrc/bn254_fixed_base.cu``):
+one thread a scalar walks its signed ``w``-bit digits (``signed_digits``
+is the recoding's twin) and adds, for each nonzero digit ``d`` of window
+``j``, the affine point ``|d| 2^(w j) P`` (y negated for ``d < 0``) by a
+mixed addition.  ``fixed_base_table`` builds those points on the host in
+python ints, once per base (cached by the base's words: a Groth16 setup
+multiplies two bases sixteen times).  ``scalar_mul_table_plain`` is the
+twin and the specification: the reference's double-and-add scan read as
+a sum, the doublings 2^k P of the base added pairwise over each scalar's
+set bits.  Both sums are the same group element; they are compared in
+affine form.  ``scalar_mul_words`` gives the table packed (the form a
+large table such as fflonk's SRS keeps), and ``scalar_mul`` the table of
+one scalar.  ``LAUNCHES`` counts B4's launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple
+import time
+from collections import OrderedDict
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -35,8 +41,13 @@ from ..ops import cuda_build
 from ..ops.bn254_field import FQ
 from ..ops.goldilocks import resolve_device
 
-LAUNCHES = {"double_table": 0, "fixed_base": 0}
+LAUNCHES = {"fixed_base": 0}
 SHAPES: dict = {}   # launches by shape: (group, scalars)
+FB_WINDOW = 10      # B4's digit width (tools/bn254_times.py --windows)
+FB_WINDOW_SMALL = 4  # ... below FB_SMALL_N scalars (a proof's blinding),
+FB_SMALL_N = 4096    # where the table's host build costs more than the walk
+FB_TABLES_KEPT = 8  # bases whose B4 tables stay cached
+FB_TABLE_BUILDS = {"tables": 0, "host_s": 0.0}   # B4 tables built, seconds
 
 _vp = ctypes.c_void_p
 
@@ -464,34 +475,193 @@ def scalar_mul_table(F, p: Point, scalars) -> Point:
     return unpack(F, scalar_mul_words(F, p, s))
 
 
-def scalar_mul_words(F, p: Point, scalars) -> torch.Tensor:
+def scalar_mul_words(F, p: Point, scalars, w: Optional[int] = None
+                     ) -> torch.Tensor:
     """scalar_mul_table as (n, 12) or (n, 24) packed words (``pack``), the
-    form a large table keeps (the MSM reads it without a copy)."""
+    form a large table keeps (the MSM reads it without a copy); ``w`` the
+    digit width of B4's walk (default ``fixed_base_width(n)``)."""
     dev = _device_of(F, p)
     s = _scalar_limbs(scalars, dev)
     if not s.is_cuda:
         return pack(F, scalar_mul_table_plain(F, p, s))
     n = s.shape[0]
+    w = w or fixed_base_width(n)
     s = s.contiguous()
-    base = pack(F, p).reshape(-1).contiguous()
-    if base.numel() != 3 * F.words:
-        raise ValueError("scalar_mul_table: one base point expected")
-    words = 3 * F.words
-    table = torch.empty((256, words), dtype=torch.int64, device=dev)
-    out = torch.empty((n, words), dtype=torch.int64, device=dev)
-    lib = cuda_build.lib()
-    stream = _vp(cuda_build.stream_ptr())
-    cuda_build.check(lib.merlin_bn_double_table(
-        F.g2, _vp(base.data_ptr()), _vp(table.data_ptr()), stream),
-        "bn254 double table")
-    group = "G2" if F is F2 else "G1"
-    cuda_build.count(LAUNCHES, SHAPES, "double_table", (group, 1))
+    table = fixed_base_table(F, p, w)
+    out = torch.empty((n, 3 * F.words), dtype=torch.int64, device=dev)
     if n:
-        cuda_build.check(lib.merlin_bn_fixed_base(
-            F.g2, _vp(table.data_ptr()), _vp(s.data_ptr()), n,
-            _vp(out.data_ptr()), stream), "bn254 fixed base")
-        cuda_build.count(LAUNCHES, SHAPES, "fixed_base", (group, n))
+        cuda_build.check(cuda_build.lib().merlin_bn_fixed_base(
+            F.g2, _vp(table.data_ptr()), _vp(s.data_ptr()), n, w,
+            _vp(out.data_ptr()), _vp(cuda_build.stream_ptr())),
+            "bn254 fixed base")
+        cuda_build.count(LAUNCHES, SHAPES, "fixed_base",
+                         ("G2" if F is F2 else "G1", n))
     return out
+
+
+# ---------------------------------------------------------------------------
+# B4's signed digits and affine tables (python ints on the host)
+# ---------------------------------------------------------------------------
+
+
+def fixed_base_width(n: int) -> int:
+    """B4's digit width for n scalars: FB_WINDOW for a large table (fewer
+    additions a scalar), FB_WINDOW_SMALL for a few (a table of 2^(w-1)
+    points a window is built on the host for each new base)."""
+    return FB_WINDOW if n >= FB_SMALL_N else FB_WINDOW_SMALL
+
+
+def fixed_base_windows(w: int) -> int:
+    """Windows of B4's walk: 256 // w + 1 (the last takes the carry out of
+    a 256-bit scalar; its digit is at most 2^(256 mod w) <= 2^(w - 1))."""
+    return 256 // w + 1
+
+
+def signed_digits(e: int, w: int) -> List[int]:
+    """Twin of B4's recoding of a scalar e < 2^256, low window first:
+    v = (bits j of e) + carry; digit v - 2^w and carry 1 where v > 2^(w-1),
+    else digit v and carry 0.  sum_j d_j 2^(w j) = e, |d_j| <= 2^(w-1)."""
+    half, mask = 1 << (w - 1), (1 << w) - 1
+    out, carry = [], 0
+    for j in range(fixed_base_windows(w)):
+        v = ((e >> (w * j)) & mask) + carry
+        carry = int(v > half)
+        out.append(v - (carry << w))
+    return out
+
+
+_Q = FQ.mod
+
+
+def _fmul(g2, a, b):
+    if not g2:
+        return a * b % _Q
+    t0, t1 = a[0] * b[0], a[1] * b[1]
+    return ((t0 - t1) % _Q, ((a[0] + a[1]) * (b[0] + b[1]) - t0 - t1) % _Q)
+
+
+def _fsub(g2, a, b):
+    return (a - b) % _Q if not g2 else ((a[0] - b[0]) % _Q, (a[1] - b[1]) % _Q)
+
+
+def _fscale(g2, a, k):
+    return a * k % _Q if not g2 else (a[0] * k % _Q, a[1] * k % _Q)
+
+
+def _batch_inv(g2, xs):
+    """Inverses of nonzero Fq or Fq2 elements with one modular inversion
+    (Montgomery's trick over the norms)."""
+    norms = xs if not g2 else [(a * a + b * b) % _Q for a, b in xs]
+    pre, acc = [], 1
+    for v in norms:
+        pre.append(acc)
+        acc = acc * v % _Q
+    inv = pow(acc, -1, _Q)
+    out = [0] * len(norms)
+    for k in range(len(norms) - 1, -1, -1):
+        out[k] = inv * pre[k] % _Q
+        inv = inv * norms[k] % _Q
+    if not g2:
+        return out
+    return [(a * n % _Q, -b * n % _Q) for (a, b), n in zip(xs, out)]
+
+
+def _affine_add_many(g2, ps, qs):
+    """ps[i] + qs[i] for affine points (None is infinity), complete, with
+    one inversion for the lot."""
+    zero = 0 if not g2 else (0, 0)
+    out = list(ps)
+    todo, nums, dens = [], [], []
+    for i, (p, q) in enumerate(zip(ps, qs)):
+        if p is None or q is None:
+            out[i] = q if p is None else p
+        elif p[0] == q[0]:
+            if _fsub(g2, zero, p[1]) == q[1]:
+                out[i] = None
+            else:                            # p == q: the tangent
+                todo.append(i)
+                nums.append(_fscale(g2, _fmul(g2, p[0], p[0]), 3))
+                dens.append(_fscale(g2, p[1], 2))
+        else:
+            todo.append(i)
+            nums.append(_fsub(g2, q[1], p[1]))
+            dens.append(_fsub(g2, q[0], p[0]))
+    for i, num, inv in zip(todo, nums, _batch_inv(g2, dens)):
+        (x1, y1), (x2, _) = ps[i], qs[i]
+        lam = _fmul(g2, num, inv)
+        x3 = _fsub(g2, _fsub(g2, _fmul(g2, lam, lam), x1), x2)
+        out[i] = (x3, _fsub(g2, _fmul(g2, lam, _fsub(g2, x1, x3)), y1))
+    return out
+
+
+def fixed_base_table_ints(g2: bool, base, w: int) -> List:
+    """B4's table as python ints: entry j * 2^(w-1) + d - 1 is the affine
+    point d 2^(w j) P (None for infinity) for d = 1 .. 2^(w-1) and every
+    window j; `base` affine ((x, y), Fq2 pairs for G2) or None."""
+    half, n_win = 1 << (w - 1), fixed_base_windows(w)
+    bases = [base]
+    for _ in range(n_win - 1):
+        b = bases[-1]
+        for _ in range(w):
+            (b,) = _affine_add_many(g2, [b], [b])
+        bases.append(b)
+    rows = [bases]
+    for _ in range(half - 1):
+        rows.append(_affine_add_many(g2, rows[-1], bases))
+    return [rows[d][j] for j in range(n_win) for d in range(half)]
+
+
+def _base_affine(F, p: Point):
+    """The one base point of `p` as python-int affine coordinates (None for
+    infinity), from its Montgomery words on the host."""
+    ints = bf.limbs_to_ints(pack(F, p).reshape(-1, 4))
+    rinv = pow(FQ.r, -1, _Q)
+    v = [a * rinv % _Q for a in ints]
+    g2 = bool(F.g2)
+    x, y, z = ((v[0], v[1], v[2]) if not g2
+               else ((v[0], v[1]), (v[2], v[3]), (v[4], v[5])))
+    if z == (0 if not g2 else (0, 0)):
+        return None
+    (zi,) = _batch_inv(g2, [z])
+    zi2 = _fmul(g2, zi, zi)
+    return _fmul(g2, x, zi2), _fmul(g2, y, _fmul(g2, zi2, zi))
+
+
+_FB_TABLES: "OrderedDict" = OrderedDict()
+
+
+def fixed_base_table(F, p: Point, w: int) -> torch.Tensor:
+    """B4's table for the base `p` on its device: (windows * 2^(w-1),
+    2 * words) int64, each entry x then y in Montgomery form, an x of all
+    ones and a y of zeros for infinity; cached by the base's words (the
+    last FB_TABLES_KEPT bases)."""
+    words = pack(F, p).reshape(-1)
+    if words.numel() != 3 * F.words:
+        raise ValueError("scalar_mul_table: one base point expected")
+    dev = words.device
+    key = (F.g2, w, str(dev), tuple(words.tolist()))
+    table = _FB_TABLES.get(key)
+    if table is None:
+        t0 = time.perf_counter()
+        pts = fixed_base_table_ints(bool(F.g2), _base_affine(F, p), w)
+        ones, zero = (1 << 256) - 1, [0] * (F.words // 4)
+        flat = []
+        for pt in pts:
+            if pt is None:                  # x all ones: no element has it
+                flat += [ones] * (F.words // 4) + zero
+            else:
+                flat += [c * FQ.r % _Q for c in
+                         ([c for xy in pt for c in xy] if F.g2 else pt)]
+        table = bf.from_u64(bf.ints_to_limbs(flat), dev).reshape(
+            len(pts), 2 * F.words)
+        _FB_TABLES[key] = table
+        FB_TABLE_BUILDS["tables"] += 1
+        FB_TABLE_BUILDS["host_s"] += time.perf_counter() - t0
+        while len(_FB_TABLES) > FB_TABLES_KEPT:
+            _FB_TABLES.popitem(last=False)
+    else:
+        _FB_TABLES.move_to_end(key)
+    return table
 
 
 def scalar_mul(F, p: Point, e: int) -> Point:

@@ -19,9 +19,10 @@ the device (``Coefs``).
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +31,7 @@ from ..ops import bn254_cuda
 from ..ops import bn254_field as bf
 from ..ops.bn254_field import FR
 from ..ops.goldilocks import resolve_device
+from ..utils.timer import TimerLog
 from . import curve, fft, msm
 from .curve import F1, F2
 
@@ -177,11 +179,27 @@ def _signal_sums(cols, lag: torch.Tensor, n_vars: int) -> torch.Tensor:
     return msm.sum_by_key_unsorted(None, prods, s, n_vars)
 
 
+@contextlib.contextmanager
+def _piece(timer: Optional[TimerLog], label: str, device):
+    """A span of `timer` (None: no span) that ends when the card has done
+    the work the piece queued, so that each piece holds its own host and
+    device time."""
+    if timer is None:
+        yield
+        return
+    with timer.span(label):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
 def setup(r1cs: R1CS, tau: int = None, alpha: int = None, beta: int = None,
-          delta: int = None, seed: int = 1234, device=None
-          ) -> Tuple["Groth16Key", Dict]:
+          delta: int = None, seed: int = 1234, device=None,
+          timer: Optional[TimerLog] = None) -> Tuple["Groth16Key", Dict]:
     """Returns (key, toxic) — toxic only for tests/dev.  The points are
-    made on `device` (``None``: the GPU)."""
+    made on `device` (``None``: the GPU).  With `timer`, the spans
+    SETUP_LAGRANGE, _COLUMNS (A's and B's), _SUMS, _COEFS, _SCALARS and
+    _POINTS split the setup, each ending on a synchronize."""
     import random
 
     from .groth16 import Groth16Key
@@ -198,44 +216,53 @@ def setup(r1cs: R1CS, tau: int = None, alpha: int = None, beta: int = None,
     domain_bits = max((n_cons - 1).bit_length(), 1)
     n = 1 << domain_bits
 
-    lag = lagrange_evals(tau, n, device)
-    cols_a = _matrix_columns(r1cs.a, device)
-    cols_b = _matrix_columns(r1cs.b, device)
-    u = _signal_sums(cols_a, lag, r1cs.n_vars)
-    v = _signal_sums(cols_b, lag, r1cs.n_vars)
-    wv = _signal_sums(_matrix_columns(r1cs.c, device), lag, r1cs.n_vars)
-    del lag
-    coefs = coef_table(r1cs, device, cols_a, cols_b)
-    del cols_a, cols_b
+    with _piece(timer, "SETUP_LAGRANGE", device):
+        lag = lagrange_evals(tau, n, device)
+    with _piece(timer, "SETUP_COLUMNS", device):
+        cols_a = _matrix_columns(r1cs.a, device)
+        cols_b = _matrix_columns(r1cs.b, device)
+    with _piece(timer, "SETUP_SUMS", device):
+        u = _signal_sums(cols_a, lag, r1cs.n_vars)
+        v = _signal_sums(cols_b, lag, r1cs.n_vars)
+        wv = _signal_sums(_matrix_columns(r1cs.c, device), lag, r1cs.n_vars)
+        del lag
+    with _piece(timer, "SETUP_COEFS", device):
+        coefs = coef_table(r1cs, device, cols_a, cols_b)
+        del cols_a, cols_b
 
-    dinv = pow(delta, mod - 2, mod)
-    priv = slice(r1cs.n_public + 1, r1cs.n_vars)
-    c_scalars = bf.from_mont(FR, bn254_cuda.mont_mul(FR, bf.add(
-        FR, bf.add(FR, bn254_cuda.mont_mul(FR, u[priv], bf.const(FR, beta, device)),
-                   bn254_cuda.mont_mul(FR, v[priv], bf.const(FR, alpha, device))),
-        wv[priv]), bf.const(FR, dinv, device)))
-    h_scalars = bf.from_mont(FR, h_point_scalars(tau, domain_bits, dinv, device))
-    u_plain, v_plain = bf.from_mont(FR, u), bf.from_mont(FR, v)
+    with _piece(timer, "SETUP_SCALARS", device):
+        dinv = pow(delta, mod - 2, mod)
+        priv = slice(r1cs.n_public + 1, r1cs.n_vars)
+        c_scalars = bf.from_mont(FR, bn254_cuda.mont_mul(FR, bf.add(
+            FR, bf.add(FR, bn254_cuda.mont_mul(FR, u[priv],
+                                               bf.const(FR, beta, device)),
+                       bn254_cuda.mont_mul(FR, v[priv],
+                                           bf.const(FR, alpha, device))),
+            wv[priv]), bf.const(FR, dinv, device)))
+        h_scalars = bf.from_mont(FR, h_point_scalars(tau, domain_bits, dinv,
+                                                     device))
+        u_plain, v_plain = bf.from_mont(FR, u), bf.from_mont(FR, v)
 
-    g1 = curve.g1_generator(device)
-    g2 = curve.g2_generator(device)
-    key = Groth16Key(
-        n_vars=r1cs.n_vars,
-        n_public=r1cs.n_public,
-        domain_bits=domain_bits,
-        coefs=coefs,
-        vk_alpha1=curve.scalar_mul(F1, g1, alpha),
-        vk_beta1=curve.scalar_mul(F1, g1, beta),
-        vk_delta1=curve.scalar_mul(F1, g1, delta),
-        vk_beta2=curve.scalar_mul(F2, g2, beta),
-        vk_delta2=curve.scalar_mul(F2, g2, delta),
-        points_a=curve.scalar_mul_table(F1, g1, u_plain),
-        points_b1=curve.scalar_mul_table(F1, g1, v_plain),
-        points_b2=curve.scalar_mul_table(F2, g2, v_plain),
-        points_c=curve.scalar_mul_table(F1, g1, c_scalars)
-        if c_scalars.shape[0] else None,
-        points_h=curve.scalar_mul_table(F1, g1, h_scalars),
-    )
+    with _piece(timer, "SETUP_POINTS", device):
+        g1 = curve.g1_generator(device)
+        g2 = curve.g2_generator(device)
+        key = Groth16Key(
+            n_vars=r1cs.n_vars,
+            n_public=r1cs.n_public,
+            domain_bits=domain_bits,
+            coefs=coefs,
+            vk_alpha1=curve.scalar_mul(F1, g1, alpha),
+            vk_beta1=curve.scalar_mul(F1, g1, beta),
+            vk_delta1=curve.scalar_mul(F1, g1, delta),
+            vk_beta2=curve.scalar_mul(F2, g2, beta),
+            vk_delta2=curve.scalar_mul(F2, g2, delta),
+            points_a=curve.scalar_mul_table(F1, g1, u_plain),
+            points_b1=curve.scalar_mul_table(F1, g1, v_plain),
+            points_b2=curve.scalar_mul_table(F2, g2, v_plain),
+            points_c=curve.scalar_mul_table(F1, g1, c_scalars)
+            if c_scalars.shape[0] else None,
+            points_h=curve.scalar_mul_table(F1, g1, h_scalars),
+        )
     toxic = {"tau": tau, "alpha": alpha, "beta": beta, "delta": delta,
              "u": FrVector(u), "v": FrVector(v), "w": FrVector(wv)}
     return key, toxic

@@ -1,7 +1,8 @@
 """Holds, bounds and device times of the BN254 kernels B1-B4.
 
     python -m merlin_zkevm_prover_tpu_torch.tools.bn254_times [--out FILE]
-        [--host-route ENTRIES DOMAIN]
+        [--host-route ENTRIES DOMAIN] [--windows W ...] [--path-times]
+        [--define NAME=VALUE ...]
 
 Needs one CUDA card and nvcc.  Builds the kernels, prints their registers
 and spills (``ptxas -v``), holds every kernel against its plain twin on the
@@ -14,8 +15,17 @@ buckets longer than one range), then times each kernel once at a moderate
 shape (CUDA events, median of ``--runs``) beside its bound, and times
 the Groth16 steps that run through B2 and B3 on the card (``build_abc``,
 the setup's Lagrange table) beside the host route (numpy over python
-ints) at ``--host-route`` sizes.  Prints one JSON object.  ``chip_smoke.py`` uses the hold and bound functions here at
-the final hop's own shapes.
+ints) at ``--host-route`` sizes.  ``--windows 6 7 8 10`` times B4 at each
+digit width (G1 and G2, full random scalars, each width held first);
+``--path-times`` times B1 and B4 at the final hop's largest shapes
+(``PATH_*``) beside their bounds: the kernels' schedule's, and B1's with a
+full Montgomery product for every product, B4's with one complete addition
+a set bit.
+``--define BN_POS_MIX_REGS=16`` builds the kernels from a copy of ``csrc/``
+(under ``build/``) in which that ``#define`` has the given value, so that
+a variant can be timed against the committed one in another process of
+the same call.  Prints one JSON object.  ``chip_smoke.py`` uses the hold
+and bound functions here at the final hop's own shapes.
 """
 
 from __future__ import annotations
@@ -45,20 +55,28 @@ IMAD32_PER_S = 33.5e12 / 2
 IMAD_PER_MUL64 = 4
 MUL64_PER_MONT = 36           # CIOS on four limbs: 4 x (4 + 1 + 4)
 G1_ADD, G1_DBL = 16, 7        # Fq products of a complete add / a double
+G1_MADD = 11                  # Fq products of B4's mixed addition
 FQ2_MUL = 3                   # Fq products of one Fq2 product (Karatsuba)
 GL_EDGE = [0, 1, GL_P - 1, GL_P, (1 << 64) - 1, 1 << 63, (1 << 32) - 1]
+
+
+def bound_ms64(n_bytes: float, mul64: float):
+    """(least ms, what bounds it) for `mul64` 64-bit products moving
+    `n_bytes`."""
+    t_mem = n_bytes / MEM_BYTES_PER_S
+    t_ops = mul64 * IMAD_PER_MUL64 / IMAD32_PER_S
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
 def bound_ms(n_bytes: float, mont: float):
     """(least ms, what bounds it) for `mont` Montgomery products moving
     `n_bytes`."""
-    t_mem = n_bytes / MEM_BYTES_PER_S
-    t_ops = mont * MUL64_PER_MONT * IMAD_PER_MUL64 / IMAD32_PER_S
-    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+    return bound_ms64(n_bytes, mont * MUL64_PER_MONT)
 
 
 def leaf_products(w: int) -> int:
-    """Montgomery products of one leaf of a width-w row."""
+    """Montgomery products of one leaf of a width-w row, every product a
+    full CIOS product (``bound_leaf_cios``)."""
     if w <= 4:
         return 0
     n_fr = -(-w // 3)
@@ -68,11 +86,33 @@ def leaf_products(w: int) -> int:
     return prods
 
 
+def leaf_mul64(w: int) -> int:
+    """64-bit products of one leaf of a width-w row in the kernels'
+    schedule (lazy mixes: pbc.mul64_products)."""
+    if w <= 4:
+        return 0
+    n_fr = -(-w // 3)
+    prods = (n_fr + 1) * MUL64_PER_MONT
+    for off in range(0, n_fr, pbc.ARITY):
+        prods += pbc.mul64_products(min(pbc.ARITY, n_fr - off) + 1)
+    return prods
+
+
 def bound_leaf(h: int, w: int):
+    return bound_ms64(h * (w + 4) * 8, h * leaf_mul64(w))
+
+
+def bound_leaf_cios(h: int, w: int):
     return bound_ms(h * (w + 4) * 8, h * leaf_products(w))
 
 
 def bound_node(n: int):
+    g = -(-n // pbc.ARITY)
+    return bound_ms64((n + g) * 32, g * (pbc.mul64_products(17) +
+                                         17 * MUL64_PER_MONT))
+
+
+def bound_node_cios(n: int):
     g = -(-n // pbc.ARITY)
     return bound_ms((n + g) * 32, g * (pbc.mont_products(17) + 17))
 
@@ -110,12 +150,52 @@ def set_bits(scalars: torch.Tensor) -> int:
     return sum(int(((scalars >> k) & 1).sum()) for k in range(64))
 
 
-def bound_fixed_base(F, scalars: torch.Tensor):
-    """One addition a set bit, 256 doublings of the base."""
+def bound_fixed_base_set_bits(F, scalars: torch.Tensor):
+    """The double-and-add count: one complete addition a set bit, 256
+    doublings of the base."""
     adds = set_bits(scalars)
     words = 3 * (8 if F is F2 else 4)
     return bound_ms(scalars.shape[0] * (words + 4) * 8,
                     _point_products(F, adds, 256))
+
+
+def digit_counts(scalars: torch.Tensor, w: int) -> torch.Tensor:
+    """Nonzero signed digits of each (n, 4) plain scalar under B4's
+    recoding (curve.signed_digits), vectorised: v = bits + carry, zero
+    where v is 0 or 2^w."""
+    half, mask = 1 << (w - 1), (1 << w) - 1
+    carry = torch.zeros(scalars.shape[0], dtype=torch.int64,
+                        device=scalars.device)
+    count = torch.zeros_like(carry)
+    for j in range(curve.fixed_base_windows(w)):
+        lo = w * j
+        k, off = lo >> 6, lo & 63
+        bits = torch.zeros_like(carry)
+        if k < 4 and off + w <= 64:
+            bits = (scalars[:, k] >> off) & mask
+        elif k < 4:                       # the window crosses a limb
+            bits = (scalars[:, k] >> off) & ((1 << (64 - off)) - 1)
+            if k + 1 < 4:
+                bits |= (scalars[:, k + 1] & ((1 << (off + w - 64)) - 1)) \
+                    << (64 - off)
+        v = bits + carry
+        carry = (v > half).long()
+        count += ((v != 0) & (v != (1 << w))).long()
+    return count
+
+
+def bound_fixed_base(F, scalars: torch.Tensor, w: int = None):
+    """The kernel's walk: one mixed addition (11 products) a nonzero digit
+    but a scalar's first; the scalars read, the points written and the
+    base's table read once."""
+    w = w or curve.FB_WINDOW
+    nz = digit_counts(scalars, w)
+    madds = int((nz - 1).clamp(min=0).sum())
+    k = FQ2_MUL if F is F2 else 1
+    words = 3 * (8 if F is F2 else 4)
+    table = curve.fixed_base_windows(w) << (w - 1)
+    return bound_ms(scalars.shape[0] * (words + 4) * 8 +
+                    table * 2 * (words // 3) * 8, k * G1_MADD * madds)
 
 
 # ---------------------------------------------------------------------------
@@ -347,12 +427,113 @@ def hold_sum_ranges(F, n_vals: int, n_ranges: int, gathered: bool,
 
 
 def hold_fixed_base(F, base, scalars: torch.Tensor, cap: int = 4096) -> Dict:
-    s = _ends(scalars, cap)
-    got = curve.affine_ints(F, curve.scalar_mul_table(F, base, s))
-    want = curve.affine_ints(F, curve.scalar_mul_table_plain(F, base, s))
+    """B4 launched on all the scalars, its first and last `cap` results
+    against the twin's on those scalars, affine."""
+    n = scalars.shape[0]
+    sel = torch.arange(n, device=scalars.device)
+    sel = _ends(sel[:, None], cap)[:, 0]
+    words = curve.scalar_mul_words(F, base, scalars)[sel]
+    got = curve.affine_ints(F, curve.unpack(F, words))
+    want = curve.affine_ints(F, curve.scalar_mul_table_plain(
+        F, base, scalars[sel]))
     return {"kernel": "B4 fixed_base", "group": "G2" if F is F2 else "G1",
-            "n": int(scalars.shape[0]), "held_scalars": int(s.shape[0]),
+            "n": int(n), "held_scalars": int(sel.shape[0]),
             "max_abs_err": 0 if got == want else 1}
+
+
+def meet_kinds(e: int, w: int) -> List[str]:
+    """What B4's walk of e meets, window by window, for a base of order r:
+    "equal" where the accumulator L P (L the lower digits' sum) is the
+    point d 2^(w j) P it adds (the doubling), "opposite" where it is its
+    negation (infinity)."""
+    r, out, low = FR.mod, [], 0
+    for j, d in enumerate(curve.signed_digits(e, w)):
+        t = d << (w * j)
+        if d and low % r:
+            if (low - t) % r == 0:
+                out.append("equal")
+            elif (low + t) % r == 0:
+                out.append("opposite")
+        low += t
+    return out
+
+
+def meet_scalars(w: int) -> Dict[str, List[int]]:
+    """Scalars below 2^256 whose walk meets +-the point it adds: k r (the
+    last digit's addition gives infinity) and 2 d 2^(w j) - k r (the lower
+    windows' sum d 2^(w j) - k r is the point), each kept where
+    meet_kinds finds the case."""
+    r = FR.mod
+    out = {"equal": [], "opposite": []}
+    cands = [k * r for k in (1, 2, 3)]
+    for j in range(curve.fixed_base_windows(w)):
+        for d in range(1, (1 << (w - 1)) + 1):
+            cands += [e for e in ((2 * d << (w * j)) - k * r for k in (1, 2))
+                      if 0 <= e < 1 << 256]
+    for e in cands:
+        for kind in set(meet_kinds(e, w)):
+            out[kind].append(e)
+    return out
+
+
+def edge_scalars(w: int) -> List[int]:
+    """B4's edge scalars at digit width w: 0, 1, r - 1, r, 2^k and r - 2^k
+    at window edges, 2^256 - 1, a carry into the top window, every digit
+    at +2^(w-1) and at -(2^(w-1) - 1), and the meet_scalars."""
+    r, half = FR.mod, 1 << (w - 1)
+    n_win = curve.fixed_base_windows(w)
+    ks = sorted({0, 1, w - 1, w, 63, 64, 127, 128, 252, 253, 254, 255,
+                 w * (n_win - 2), w * (n_win - 2) - 1})
+    out = [0, 1, 2, r - 1, r, r + 1, (1 << 256) - 1]
+    out += [1 << k for k in ks] + [(r - (1 << k)) % (1 << 256) for k in ks]
+    out.append(((1 << w) - 1) << (w * (n_win - 2)))          # carry to the top
+    out.append(sum(half << (w * j) for j in range(n_win - 1)) % (1 << 256))
+    out.append(sum((half + 1) << (w * j) for j in range(n_win - 1))
+               % (1 << 256))
+    meet = meet_scalars(w)
+    out += meet["equal"][:4] + meet["opposite"][:4]
+    return out
+
+
+def hold_fixed_base_edges(F, w: int, device, ints: bool = True) -> Dict:
+    """B4 at the edge scalars against its twin and (`ints`) python ints,
+    affine."""
+    from ..snark import pairing as pr
+
+    es = edge_scalars(w)
+    s = bf.scalars_to_limbs(es, device)
+    base = _one_gen(F, device)
+    got = curve.affine_ints(F, curve.unpack(F, curve.scalar_mul_words(
+        F, base, s, w=w)))
+    want = curve.affine_ints(F, curve.scalar_mul_table_plain(F, base, s))
+    meet = meet_scalars(w)
+    out = {"kernel": "B4 fixed_base edges", "group": "G2" if F is F2 else "G1",
+           "w": w, "scalars": len(es),
+           "meet_equal": len(meet["equal"][:4]),
+           "meet_opposite": len(meet["opposite"][:4]),
+           "max_abs_err": 0 if got == want else 1}
+    if ints:
+        mul, gen_pt = (pr.g1_mul, pr.G1_GEN) if F is F1 else \
+            (pr.g2_mul, pr.G2_GEN)
+        want_i = [mul(e, gen_pt) for e in es]
+        want_i = [None if p is None else (p if F is F1 else
+                                          (tuple(p[0]), tuple(p[1])))
+                  for p in want_i]
+        out["equal_to_python_ints"] = got == want_i
+        if got != want_i:
+            out["max_abs_err"] = 1
+    return out
+
+
+def leaf_edge_widths() -> List[int]:
+    """Row widths whose last sponge chunk has every width t = 2..17, alone
+    (3 (t - 1) words, even t) or after a full chunk (3 (t + 15) - 1, the
+    last element short of a word, odd t), and the widths 1-5, 47-49, 105
+    and 665."""
+    ws = {1, 2, 3, 4, 5, 47, 48, 49, 105, 665}
+    for t in range(2, 18):
+        ws.add(3 * (t - 1) if t % 2 == 0 else 3 * (t + 15) - 1)
+    return sorted(ws)
 
 
 def _rows(F, leaf, sel):
@@ -417,13 +598,32 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
 
 
-def small_holds(dev, gen) -> List[Dict]:
-    """Every kernel at the edges of its control flow."""
-    out = []
-    out += hold_leaves([(37, w) for w in (0, 1, 3, 4, 5, 6, 24, 47, 48, 49,
-                                          105)] + [(9000, 24)], gen, dev)
+def b1_b4_holds(dev, gen) -> List[Dict]:
+    """B1 and B4 at the edges of their control flow."""
+    out = hold_leaves([(37, w) for w in (0, 1, 3, 4, 5, 6, 24, 47, 48, 49,
+                                         105)] + [(9000, 24)], gen, dev)
+    out += hold_leaves([(130, w) for w in leaf_edge_widths()], gen, dev)
     out += hold_nodes([1, 15, 16, 17, 33, 300, 140000], gen, dev)
     out.append(hold_tree_host(gl_rows(300, 24, gen, dev)))
+    for F in (F1, F2):
+        out.append(hold_fixed_base(F, _one_gen(F, dev),
+                                   field_elems(FR, 3000, gen, dev), 64))
+        for w in (curve.FB_WINDOW, curve.FB_WINDOW_SMALL):
+            out.append(hold_fixed_base_edges(F, w, dev))
+    return out
+
+
+def quick_holds(dev, gen) -> List[Dict]:
+    """B1 and B4 at a few edges (a variant's check before its times)."""
+    out = hold_leaves([(37, w) for w in (5, 24, 47, 48, 105)], gen, dev)
+    out += hold_nodes([1, 17, 300], gen, dev)
+    out.append(hold_fixed_base_edges(F1, curve.FB_WINDOW, dev))
+    return out
+
+
+def small_holds(dev, gen) -> List[Dict]:
+    """Every kernel at the edges of its control flow."""
+    out = b1_b4_holds(dev, gen)
     for ctx in (FQ, FR):
         a = field_elems(ctx, 64, gen, dev)
         b = torch.flip(a, [0]).contiguous()
@@ -492,6 +692,68 @@ def timings(dev, gen, runs: int) -> List[Dict]:
     entry("B4 fixed_base G1", [1 << 16],
           lambda: curve.scalar_mul_table(F1, g, full),
           bound_fixed_base(F1, full))
+    return out
+
+
+def window_times(dev, gen, windows: List[int], runs: int,
+                 n: int = 1 << 20) -> List[Dict]:
+    """B4 at each digit width: held at the edge scalars first, then timed
+    on n full random scalars in G1 and n / 4 in G2, table build apart
+    (host, cached) and beside the bound of that width's walk."""
+    out = []
+    full = field_elems(FR, n, gen, dev)
+    for w in windows:
+        for F, m in ((F1, n), (F2, n // 4)):
+            held = hold_fixed_base_edges(F, w, dev)
+            base = _one_gen(F, dev)
+            curve._FB_TABLES.clear()
+            t0 = time.perf_counter()
+            curve.fixed_base_table(F, base, w)
+            table_s = time.perf_counter() - t0
+            s = full[:m]
+            out.append({"kernel": "B4 fixed_base", "w": w,
+                        "group": held["group"], "n": m,
+                        "held_max_abs_err": held["max_abs_err"],
+                        "table_host_s": table_s,
+                        "ms": device_time_ms(lambda: curve.scalar_mul_words(
+                            F, base, s, w=w), runs),
+                        "bound_ms": bound_fixed_base(F, s, w)[0]})
+    return out
+
+
+# The final hop's largest shapes (chip_smoke.py phase final): B1's leaf
+# launch and node level, B4's G1 table.
+PATH_LEAF = (1 << 20, 105)
+PATH_NODE = 1 << 20
+PATH_FIXED_BASE = 14_008_649
+
+
+def path_times(dev, gen, runs: int) -> List[Dict]:
+    """B1 and B4 at the final hop's largest shapes beside their bounds (the
+    kernels' schedule) and beside the counts of bound_*_cios and
+    bound_fixed_base_set_bits."""
+    out = []
+    h, w = PATH_LEAF
+    rows = gl_rows(h, w, gen, dev)
+    out.append({"kernel": "B1 leaf", "shape": [h, w],
+                "ms": device_time_ms(lambda: pbc.leaf_hash(rows), runs),
+                "bound_ms": bound_leaf(h, w)[0],
+                "bound_ms_cios": bound_leaf_cios(h, w)[0]})
+    del rows
+    lvl = field_elems(FR, PATH_NODE, gen, dev)
+    out.append({"kernel": "B1 node", "shape": [PATH_NODE],
+                "ms": device_time_ms(lambda: pbc.node_hash(lvl), runs),
+                "bound_ms": bound_node(PATH_NODE)[0],
+                "bound_ms_cios": bound_node_cios(PATH_NODE)[0]})
+    del lvl
+    s = field_elems(FR, PATH_FIXED_BASE, gen, dev)
+    g = curve.g1_generator(dev)
+    out.append({"kernel": "B4 fixed_base", "group": "G1",
+                "shape": [PATH_FIXED_BASE], "w": curve.FB_WINDOW,
+                "ms": device_time_ms(lambda: curve.scalar_mul_words(F1, g, s),
+                                     runs),
+                "bound_ms": bound_fixed_base(F1, s)[0],
+                "bound_ms_set_bits": bound_fixed_base_set_bits(F1, s)[0]})
     return out
 
 
@@ -608,10 +870,19 @@ def main(argv=None) -> int:
     ap.add_argument("--host-route", type=int, nargs=2, default=[1 << 22, 1 << 20],
                     metavar=("ENTRIES", "DOMAIN"),
                     help="sizes of the host-route comparison (0 0: none)")
+    ap.add_argument("--windows", type=int, nargs="*", default=[],
+                    help="time B4 at these digit widths")
+    ap.add_argument("--path-times", action="store_true",
+                    help="time B1 and B4 at the final hop's largest shapes")
+    ap.add_argument("--define", action="append", default=[])
+    ap.add_argument("--holds", choices=("all", "b1-b4", "quick"),
+                    default="all", help="which holds run before the times")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bn254_times: no CUDA device")
+    if args.define:
+        cuda_build.CSRC = cuda_build.variant_csrc(args.define)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2026)
@@ -619,13 +890,21 @@ def main(argv=None) -> int:
     cuda_build.lib()
     res = {k: v for k, v in cuda_build.resources(cuda_build.BUILD_LOG).items()
            if k.startswith("bn_")}
-    holds = small_holds(dev, gen)
+    holds = {"all": small_holds, "b1-b4": b1_b4_holds,
+             "quick": quick_holds}[args.holds](dev, gen)
     bad = [h for h in holds if h["max_abs_err"] != 0]
-    doc = {"card": card(), "build_s": cuda_build.BUILD_SECONDS,
+    doc = {"card": card(), "defines": args.define,
+           "build_s": cuda_build.BUILD_SECONDS,
+           "source_build_s": cuda_build.SOURCE_SECONDS,
            "kernels": res, "holds": holds, "mismatches": len(bad),
            "hold_s": time.time() - t0}
     if not args.no_times and not bad:
         doc["times"] = timings(dev, gen, args.runs)
+    if args.windows and not bad:
+        doc["windows"] = window_times(dev, gen, args.windows, args.runs)
+        bad += [x for x in doc["windows"] if x["held_max_abs_err"] != 0]
+    if args.path_times and not bad:
+        doc["path_times"] = path_times(dev, gen, args.runs)
     if args.host_route[0] and not bad:
         doc["host_route"] = host_route(dev, gen, *args.host_route)
         if not (doc["host_route"]["abc_equal"] and

@@ -36,8 +36,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
-import shutil
 import statistics
 import subprocess
 import time
@@ -54,24 +52,6 @@ from ..utils.timer import device_time_ms
 # launches while the card is still busy, so the events time the card
 SPLIT_PREFILL_CYCLES = 40_000_000
 WIDTHS = (1, 2, 3, 7, 25, 27, 64)
-
-
-def _variant(defines: list, source: str = "ntt_gl.cu") -> Path:
-    """A copy of csrc/ with each NAME=VALUE #define rewritten in `source`."""
-    tag = "_".join(d.replace("=", "") for d in defines)
-    dst = cuda_build.BUILD_DIR / f"csrc_{tag}"
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(cuda_build.CSRC, dst)
-    src = dst / source
-    text = src.read_text()
-    for d in defines:
-        name, value = d.split("=", 1)
-        text, n = re.subn(rf"^#define {name} .*$", f"#define {name} {value}",
-                          text, flags=re.M)
-        if n != 1:
-            raise ValueError(f"no single #define {name} in {source}")
-    src.write_text(text)
-    return dst
 
 
 def _rnd_on(dev):
@@ -305,7 +285,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("ntt_times: no CUDA device")
     if args.define:
-        cuda_build.CSRC = _variant(args.define)
+        cuda_build.CSRC = cuda_build.variant_csrc(args.define)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         stdout=subprocess.PIPE, text=True, check=True).stdout.strip()

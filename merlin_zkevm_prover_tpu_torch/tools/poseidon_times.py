@@ -30,8 +30,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
-import shutil
 import subprocess
 from pathlib import Path
 
@@ -45,24 +43,6 @@ from ..utils.timer import device_time_ms
 # (chip_smoke.py's prove line, tree_heights): the constant and four stage
 # trees of the 2^18-row LDE, then FRI's three.
 PROOF_TREES = {1 << 18: 5, 1 << 16: 1, 1 << 14: 1, 1 << 12: 1}
-
-
-def _variant(defines: list) -> Path:
-    """A copy of csrc/ with each NAME=VALUE #define rewritten."""
-    tag = "_".join(d.replace("=", "") for d in defines)
-    dst = cuda_build.BUILD_DIR / f"csrc_{tag}"
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(cuda_build.CSRC, dst)
-    src = dst / "poseidon_gl.cu"
-    text = src.read_text()
-    for d in defines:
-        name, value = d.split("=", 1)
-        text, n = re.subn(rf"^#define {name} .*$", f"#define {name} {value}",
-                          text, flags=re.M)
-        if n != 1:
-            raise ValueError(f"no single #define {name} in poseidon_gl.cu")
-    src.write_text(text)
-    return dst
 
 
 def _rnd_on(dev):
@@ -135,7 +115,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("poseidon_times: no CUDA device")
     if args.define:
-        cuda_build.CSRC = _variant(args.define)
+        cuda_build.CSRC = cuda_build.variant_csrc(args.define)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         stdout=subprocess.PIPE, text=True, check=True).stdout.strip()

@@ -52,7 +52,6 @@ from ..ops import goldilocks as gl
 from ..ops.goldilocks3 import GL3
 from ..stark import compile_air, vm
 from ..utils.timer import device_time_ms
-from .ntt_times import _variant
 
 P = gl.P
 # the edge operands and two words in [p, 2^64), which are read modulo p
@@ -201,7 +200,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("vm_times: needs a CUDA card")
     if args.define:
-        cuda_build.CSRC = _variant(args.define, "vm_gl.cu")
+        cuda_build.CSRC = cuda_build.variant_csrc(args.define)
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

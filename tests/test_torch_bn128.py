@@ -199,6 +199,36 @@ def test_leaf_hash_twin_matches_reference(w):
     assert got == [ref_tree.leaf_hash([int(v) for v in r]) for r in rows]
 
 
+@pytest.mark.parametrize("w", [5, 6, 24, 45, 47, 48, 49, 50, 95, 105, 665])
+def test_sponge_plan_matches_reference_leaf(w):
+    """Kernel B1's launches for a width-w row (pbc.sponge_plan: the full
+    chunks at t = 17, the last at its own t, the capacity carried), run in
+    python ints, give the reference's leaf and read every element once."""
+    for row in gl_rows(2, w, w):
+        vals = [int(v) for v in row]
+        els = [sum(v << (64 * i) for i, v in enumerate(vals[k:k + 3]))
+               for k in range(0, w, 3)]
+        cap, used = 0, 0
+        for t, first, n_chunks in pbc.sponge_plan(w):
+            assert first == used
+            for c in range(n_chunks):
+                chunk = els[first + c * (t - 1):first + (c + 1) * (t - 1)]
+                assert len(chunk) == t - 1
+                cap = pos.permute_t([cap] + chunk)[0]
+                used += t - 1
+        assert used == len(els)
+        assert cap == ref_tree.leaf_hash(vals)
+
+
+def test_mul64_products_recount():
+    """The kernels' lazy schedule against a full CIOS product (36 64-bit
+    products) for every product, width by width."""
+    for t in range(2, 18):
+        assert pbc.mul64_products(t) < 36 * pbc.mont_products(t)
+    assert pbc.mul64_products(17) == 120768
+    assert 36 * pbc.mont_products(17) == 186048
+
+
 def test_node_hash_twin_matches_reference():
     rnd = random.Random(5)
     level = [v % R for v in edge_ints(R)] + [rnd.randrange(R) for _ in range(25)]

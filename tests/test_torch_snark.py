@@ -294,6 +294,8 @@ from merlin_zkevm_prover_tpu_torch.snark import pairing as pr  # noqa: E402
 from merlin_zkevm_prover_tpu_torch.snark import setup as port_setup  # noqa: E402
 from merlin_zkevm_prover_tpu_torch.snark.curve import F1, F2  # noqa: E402
 from merlin_zkevm_prover_tpu_torch.stark import StarkProof, compile_air  # noqa: E402
+from merlin_zkevm_prover_tpu_torch.tools import bn254_times as bnt  # noqa: E402
+from merlin_zkevm_prover_tpu_torch.utils.timer import TimerLog  # noqa: E402
 
 R = bf.R_MOD
 Q = bf.Q
@@ -381,6 +383,156 @@ def test_scalar_mul_table_twin_matches_oracle():
     got = curve.affine_ints(F1, curve.scalar_mul_table(F1, g1(), es))
     assert got == [aff_mul(G, e) for e in es]
     assert one(F1, curve.scalar_mul(F1, g1(), 77)) == aff_mul(G, 77)
+
+
+# ---- kernel B4's signed digits and affine tables (python ints) ----
+
+
+def _recode(e, w):
+    """Signed w-bit windows of e, the textbook way: d = e mod 2^w, less
+    2^w above 2^(w-1), then e = (e - d) / 2^w."""
+    out = []
+    for _ in range(curve.fixed_base_windows(w)):
+        d = e % (1 << w)
+        if d > 1 << (w - 1):
+            d -= 1 << w
+        out.append(d)
+        e = (e - d) >> w
+    assert e == 0
+    return out
+
+
+@pytest.mark.parametrize("w", [6, 7, 8, 10])
+def test_signed_digits_match_the_recoding(w):
+    half = 1 << (w - 1)
+    n_low = 256 // w
+    all_half = sum(half << (w * j) for j in range(n_low))
+    all_above = sum((half + 1) << (w * j) for j in range(n_low))
+    es = [0, 1, R - 1, R, (1 << 256) - 1, all_half, all_above] + \
+        [1 << k for k in range(256)] + [R - (1 << k) for k in range(254)]
+    for e in es:
+        ds = curve.signed_digits(e, w)
+        assert ds == _recode(e, w)
+        assert sum(d << (w * j) for j, d in enumerate(ds)) == e
+        assert all(-half < d <= half for d in ds)
+    assert curve.signed_digits(all_half, w) == [half] * n_low + [0]
+    ds = curve.signed_digits(all_above, w)
+    assert ds[0] == -(half - 1) and ds[-1] == 1
+    assert curve.signed_digits((1 << 256) - 1, w)[-1] == 1 << (256 % w)
+    # the bound's vectorised count of nonzero digits
+    got = bnt.digit_counts(bf.scalars_to_limbs(es, "cpu"), w)
+    assert got.tolist() == [sum(1 for d in curve.signed_digits(e, w) if d)
+                            for e in es]
+
+
+def _g2_ints(p):
+    return None if p is None else (tuple(p[0]), tuple(p[1]))
+
+
+@pytest.mark.parametrize("group", ["G1", "G2"])
+def test_fixed_base_table_matches_python_multiples(group):
+    """Entry j 2^(w-1) + d - 1 is d 2^(w j) P, at the kernel's width."""
+    w = curve.FB_WINDOW
+    half, n_win = 1 << (w - 1), curve.fixed_base_windows(w)
+    g2 = group == "G2"
+    base = pr.G2_GEN if g2 else G
+    table = curve.fixed_base_table_ints(g2, base, w)
+    assert len(table) == n_win * half
+    mul = (lambda k: _g2_ints(pr.g2_mul(k, pr.G2_GEN))) if g2 else \
+        (lambda k: aff_mul(G, k % R))
+    for j in (0, 1, n_win // 2, n_win - 1):
+        for d in (1, 2, 3, half - 1, half):
+            got = table[j * half + d - 1]
+            assert (_g2_ints(got) if g2 else got) == mul(d << (w * j))
+
+
+@pytest.mark.parametrize("group", ["G1", "G2"])
+def test_fixed_base_table_tensor_layout(group):
+    """The device table: x then y (c0, c1 each over Fq2), Montgomery form,
+    an x of all ones for infinity; the same points from a base in other
+    Jacobian coordinates."""
+    F = F2 if group == "G2" else F1
+    gen = curve.g2_generator("cpu") if F is F2 else g1()
+    w = 4
+    want = curve.fixed_base_table_ints(F is F2, pr.G2_GEN if F is F2 else G, w)
+    zs = F.split(F.from_int((5, 7) if F is F2 else 5, "cpu"))
+    (z2,) = F.mul_many([(zs, zs)])
+    (z3,) = F.mul_many([(z2, zs)])
+    x, y = F.mul_many([(F.split(gen.x), z2), (F.split(gen.y), z3)])
+    moved = curve.join_point(F, curve.Point(x, y, zs))   # (x z^2, y z^3, z)
+    for base in (gen, moved):
+        table = curve.fixed_base_table(F, base, w)
+        assert tuple(table.shape) == (len(want), 4 * (4 if F is F2 else 2))
+        rinv = pow(bf.FQ.r, -1, Q)
+        v = [x * rinv % Q for x in bf.limbs_to_ints(table.reshape(-1, 4))]
+        k = 4 if F is F2 else 2
+        got = []
+        for i in range(len(want)):
+            e = v[k * i:k * i + k]
+            raw = bf.limbs_to_ints(table[i].reshape(-1, 4))
+            if raw[0] == (1 << 256) - 1:
+                assert not any(raw[k // 2:])
+                got.append(None)
+            elif F is F2:
+                got.append(((e[0], e[1]), (e[2], e[3])))
+            else:
+                got.append((e[0], e[1]))
+        assert got == want
+    inf = curve.infinity(F, (), "cpu")
+    table = curve.fixed_base_table(F, inf, w)
+    half = table.shape[1] // 2
+    assert bool((table[:, :half] == -1).all())
+    assert not bool(table[:, half:].any())
+
+
+def test_fixed_base_table_cache_reused_per_base():
+    curve._FB_TABLES.clear()
+    g = g1()
+    t1 = curve.fixed_base_table(F1, g, 4)
+    assert curve.fixed_base_table(F1, g, 4) is t1
+    assert curve.fixed_base_table(F1, g1(), 4) is t1      # the same words
+    assert curve.fixed_base_table(F1, g, 5) is not t1     # another width
+    g2x = curve.double(F1, g)
+    assert not torch.equal(curve.fixed_base_table(F1, g2x, 4)[:2], t1[:2])
+    bases = [g]
+    for _ in range(curve.FB_TABLES_KEPT):
+        bases.append(curve.add(F1, bases[-1], g))
+        curve.fixed_base_table(F1, bases[-1], 4)
+    assert len(curve._FB_TABLES) == curve.FB_TABLES_KEPT
+    assert curve.fixed_base_table(F1, g, 4) is not t1     # evicted, rebuilt
+    assert torch.equal(curve.fixed_base_table(F1, g, 4), t1)
+    curve._FB_TABLES.clear()
+
+
+@pytest.mark.parametrize("wide", [True, False], ids=["FB_WINDOW", "small"])
+@pytest.mark.parametrize("group", ["G1", "G2"])
+def test_fixed_base_walk_model_at_edge_scalars(group, wide):
+    """B4's walk in python ints (its digits, its table, y negated for a
+    negative digit, a complete affine sum) gives e P at the edge scalars
+    chip_smoke.py holds the kernel at, among them walks whose accumulator
+    meets the point it adds and its negation."""
+    w = curve.FB_WINDOW if wide else curve.FB_WINDOW_SMALL
+    half = 1 << (w - 1)
+    g2 = group == "G2"
+    base = pr.G2_GEN if g2 else G
+    table = curve.fixed_base_table_ints(g2, base, w)
+    add = pr.g2_add if g2 else aff_add
+    es = bnt.edge_scalars(w)
+    kinds = {k for e in es for k in bnt.meet_kinds(e, w)}
+    assert kinds == {"equal", "opposite"}
+    if g2:      # the slow G2 oracle on the meeting walks and a few edges
+        es = [e for e in es if bnt.meet_kinds(e, w)] + \
+            [0, 1, R - 1, (1 << 256) - 1]
+    for e in es:
+        acc = None
+        for j, d in enumerate(curve.signed_digits(e, w)):
+            if d:
+                p = table[j * half + abs(d) - 1]
+                if d < 0:
+                    p = (p[0], pr.f2_neg(p[1]) if g2 else (-p[1]) % Q)
+                acc = add(acc, p)
+        want = _g2_ints(pr.g2_mul(e, pr.G2_GEN)) if g2 else aff_mul(G, e % R)
+        assert (_g2_ints(acc) if g2 else acc) == want
 
 
 # ---------------------------------------------------------------------------
@@ -566,6 +718,26 @@ def test_groth16_key_in_the_exponent(small_groth16):
     assert curve.affine_ints(F1, key.points_h) == [aff_mul(G, h) for h in hs]
     assert len(key.coefs) == sum(len(x) for x in r1cs.a + r1cs.b)
     assert n == 4
+
+
+def test_setup_pieces_split_the_setup_and_leave_the_key(small_groth16):
+    """setup(timer=...) records its six pieces in order and makes the same
+    key as setup without one."""
+    r1cs, _, key, _, _ = small_groth16
+    pieces = TimerLog("setup", quiet=True)
+    timed, _ = port_setup.setup(r1cs, seed=SETUP_SEED, device="cpu",
+                                timer=pieces)
+    assert [k for k, _ in pieces.spans] == [
+        "SETUP_LAGRANGE", "SETUP_COLUMNS", "SETUP_SUMS", "SETUP_COEFS",
+        "SETUP_SCALARS", "SETUP_POINTS"]
+    for name in ("vk_alpha1", "vk_delta1", "points_a", "points_b1",
+                 "points_c", "points_h"):
+        assert torch.equal(curve.pack(F1, getattr(timed, name)),
+                           curve.pack(F1, getattr(key, name))), name
+    for name in ("vk_beta2", "points_b2"):
+        assert torch.equal(curve.pack(F2, getattr(timed, name)),
+                           curve.pack(F2, getattr(key, name))), name
+    assert timed.coefs.as_list() == key.coefs.as_list()
 
 
 def test_groth16_proof_passes_the_pairing_and_a_tampered_one_fails(
