@@ -82,8 +82,9 @@ and the exit code is non-zero unless every phase passed):
            on the card, verified with the BN128 tree and transcript, a
            changed public rejected; then FinalStage: the verifier R1CS, the
            Groth16 setup (B2's power and product kernels, B3's range sums,
-           B4's point tables) and proof (B2's transforms, B3's range sums
-           and five MSMs, B4 for the blinding), the pairing check, a proof
+           B4's point tables made affine by B3) and proof (B2's transforms,
+           B3's range sums and five MSMs over the affine tables, B4 for the
+           blinding), the pairing check, a proof
            with pi_a changed by one rejected.  One line: rows, gates,
            constraints, variables, domain bits, the host spans, each BN254
            kernel's launches and device ms (the phase runs under
@@ -96,9 +97,18 @@ and the exit code is non-zero unless every phase passed):
            4096; B3's range sums on up to 8192 values at each logged
            proportion of ranges; each MSM at its full point count and
            window, every scalar 0 but the first and last 4096, against the
-           twin on those 8192 at the same window, its largest bucket over
-           three range passes; B4 launched on all of a logged count's
-           scalars, its first and last 512 results held); one 2^12-row
+           twin on those 8192 (at the reference's window), its largest
+           bucket over three range passes; B3's batch-to-affine at each
+           logged shape, its signed-digit counts and scatter and affine
+           bucket sums at the smallest and largest logged shape of each
+           group and window, its window reduce at the most windows of
+           each (the combine against python ints); B2's NTT at every
+           size 2 to 2^24 both ways, its
+           powers at each logged shape; B4 launched on all of a logged
+           count's scalars, its first and last 512 results held); the
+           affine edges (a base at infinity, a repeated base, a base and
+           its negation in one bucket) through the MSM against python
+           ints; one 2^12-row
            BN254 tree against the host MerkleTreeBN128; the edges: B4 in
            G1 and G2 at scalars 0, 1, r - 1, r, 2^k, r - 2^k, 2^256 - 1, a
            carry into the top window, digits at +-2^(w-1) and walks whose
@@ -125,9 +135,13 @@ and the exit code is non-zero unless every phase passed):
   fflonk_holds  F1-F3 against their twins, exactly, at every distinct
            shape phase fflonk launched them at; B3 at full random scalars
            at every commitment's point count (against [sum s_i tau^i] G in
-           python ints) and, at the largest, against msm_plain; B4 (the
-           SRS) launched at every scalar count of the phase, full random
-           scalars, its first and last 512 results against its twin
+           python ints) and, at the largest, against msm_plain; B3's new
+           launches as in final_holds; B2's NTT passes above 2^24, its
+           powers at each logged length and fused poly_eval (against its
+           twin, and the host Horner up to 2^16 coefficients) at each
+           logged shape; B4 (the SRS) launched at every scalar count of the
+           phase, full random scalars, its first and last 512 results
+           against its twin
 
 Each path (permute, each golden proof, prove, prove_vm, each recursion
 stage, the final hop, the golden final hop, each fflonk case) is driven with every launch
@@ -1455,11 +1469,11 @@ def main() -> int:
     bn_kernel_of = {
         "bn_poseidon_words_kernel": "B1", "bn_poseidon_sponge_kernel": "B1",
         "bn_poseidon_node_kernel": "B1",
-        "bn_fr_bitrev_kernel": "B2", "bn_fr_ntt_stage_kernel": "B2",
-        "bn_mont_mul_kernel": "B2", "bn_fr_mul_sub_kernel": "B2",
-        "bn_fr_powers_kernel": "B2", "bn_msm_digits_kernel": "B3",
-        "bn_sum_ranges_kernel": "B3", "bn_bucket_reduce_kernel": "B3",
-        "bn_window_reduce_kernel": "B3", "bn_window_combine_kernel": "B3",
+        "bn_fr_ntt_pass_kernel": "B2", "bn_mont_mul_kernel": "B2",
+        "bn_fr_mul_sub_kernel": "B2", "bn_fr_powers_kernel": "B2",
+        "bn_fr_poly_eval_kernel": "B2", "bn_to_affine_kernel": "B3",
+        "bn_msm_digits_kernel": "B3", "bn_msm_bucket_sums_kernel": "B3",
+        "bn_sum_ranges_kernel": "B3", "bn_msm_reduce_kernel": "B3",
         "bn_fixed_base_kernel": "B4"}
 
     def bn_device_ms(prof) -> dict:
@@ -1587,6 +1601,10 @@ def main() -> int:
         b: sum(d["launches"] for k, d in by_kernel.items()
                if bn_kernel_of[k] == b) ==
         sum(final_line["launches"][b].values()) for b in bn_ids}
+    if not all(final_line["profiled_launches_equal_counters"].values()):
+        raise AssertionError("final: torch.profiler's launches differ from "
+                             "the counters: "
+                             f"{final_line['profiled_launches_equal_counters']}")
     emit({**final_line, "launched_shapes": {
         k: sorted([[list(s_) if isinstance(s_, tuple) else s_, c_]
                    for s_, c_ in v.items()], key=str)
@@ -1611,8 +1629,13 @@ def main() -> int:
     bn_holds = []
     bn_worst = {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
 
+    hold_clock = [time.time()]
+
     def bn_hold(kernel, res):
-        res = {**res, "kernel_id": kernel}
+        # the seconds since the hold before: this hold's own, data included
+        res = {**res, "kernel_id": kernel,
+               "s": round(time.time() - hold_clock[0], 2)}
+        hold_clock[0] = time.time()
         bn_holds.append(res)
         bn_worst[kernel] = max(bn_worst[kernel], res["max_abs_err"])
         if res["max_abs_err"] != 0:
@@ -1626,11 +1649,15 @@ def main() -> int:
     for res in bnt.hold_nodes(list(fin_shapes["node"]), gen_bn, dev, cap):
         bn_hold("B1", res)
     bn_hold("B1", bnt.hold_tree_host(bnt.gl_rows(1 << 12, 24, gen_bn, dev)))
-    for (n, inverse) in sorted(fin_shapes["bitrev"]):
-        a = bf.to_mont(bf.FR, bnt.field_elems(bf.FR, n, gen_bn, dev))
-        bn_hold("B2", bnt.hold_ntt(a, inverse))
+    # every NTT size from 2 to 2^24 both ways (the path's, logged in
+    # fin_shapes["pass"], among them)
+    for log_n in range(1, 25):
+        a = bf.to_mont(bf.FR, bnt.field_elems(bf.FR, 1 << log_n, gen_bn, dev))
+        for inverse in (False, True):
+            bn_hold("B2", {**bnt.hold_ntt(a, inverse), "logged": (
+                1 << log_n, inverse) in fin_shapes["pass"]})
         del a
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     for (field, n, scalar_b) in sorted(fin_shapes["mont_mul"]):
         ctx = bf.FQ if field == "fq" else bf.FR
         m_ = min(n, 2 * cap)
@@ -1650,12 +1677,47 @@ def main() -> int:
                            bn254_cuda.mul_sub(x, y, z),
                            bn254_cuda.mul_sub_plain(x, y, z))})
     for (base, n, start) in sorted(fin_shapes["powers"]):
-        got = bn254_cuda.powers(base, n, start, dev)
-        want = bn254_cuda.powers_plain(base, n, start, dev)
-        bn_hold("B2", {"kernel": "B2 powers", "n": n,
-                       "max_abs_err": bnt.diff_words(got, want)})
-        del got, want
+        bn_hold("B2", bnt.hold_powers(base, n, start, dev))
     group_of = {"Fr": None, "G1": bn_curve.F1, "G2": bn_curve.F2}
+
+    def ends_by(shapes, key):
+        """The logged shapes that differ in their control flow: for each
+        key (group, window ...), the smallest and the largest; the launches
+        between repeat them with other counts."""
+        out = {}
+        for sh in sorted(shapes):
+            lo_hi = out.setdefault(key(sh), [sh, sh])
+            lo_hi[1] = sh
+        return sorted({s_ for v in out.values() for s_ in v})
+
+    reduce_held: set = set()
+
+    def b3_new_holds(shapes, gen_, hold_):
+        """B3's batch-to-affine at every logged shape; its signed-digit
+        counts and scatter (at most 2^27 entries of windows held), affine
+        bucket sums and reduce at the smallest and largest logged shape of
+        each group and window."""
+        for (grp, n) in sorted(shapes.get("affine", {})):
+            hold_("B3", bnt.hold_affine(group_of[grp], n, gen_, dev))
+            torch.cuda.empty_cache()
+        for (grp, n, c) in ends_by(shapes.get("digits", {}),
+                                   lambda s_: (s_[0], s_[2])):
+            g_ = max(1, min(bn_msm.n_windows(254, c), (1 << 27) // n))
+            hold_("B3", bnt.hold_digits(group_of[grp], n, c, gen_, dev, g=g_))
+            torch.cuda.empty_cache()
+        for (grp, e, r) in ends_by(shapes.get("bucket_sums", {}),
+                                   lambda s_: s_[0]):
+            hold_("B3", bnt.hold_bucket_sums(group_of[grp], e, r, gen_, dev))
+            torch.cuda.empty_cache()
+        most = {}
+        for (grp, g_, c) in shapes.get("reduce", {}):
+            most[(grp, c)] = max(g_, most.get((grp, c), 0))
+        for (grp, c), g_ in sorted(most.items()):
+            if (grp, g_, c) not in reduce_held:     # final_holds' again
+                reduce_held.add((grp, g_, c))
+                hold_("B3", bnt.hold_reduce(group_of[grp], g_, c, gen_, dev))
+
+
     for (group, n_vals, n_ranges, gathered) in sorted(
             fin_shapes["sum_ranges"]):
         bn_hold("B3", bnt.hold_sum_ranges(group_of[group], n_vals, n_ranges,
@@ -1667,6 +1729,9 @@ def main() -> int:
             raise AssertionError(f"final_holds: {res} held fewer than three "
                                  "range passes")
         torch.cuda.empty_cache()
+    b3_new_holds(fin_shapes, gen_bn, bn_hold)
+    for F_ in (bn_curve.F1, bn_curve.F2):
+        bn_hold("B3", bnt.hold_affine_edges(F_, dev))
     # B4 launched at each logged scalar count, held on the first and last
     # 512 results: its twin's cost is sequential (254 doublings a result,
     # ~4 s) plus a tree of adds over scalars x 254 bits, launch-bound plain
@@ -2017,29 +2082,58 @@ def main() -> int:
              also_replaces="merlin_zkevm_prover_tpu/stark/merkle_bn128.py:22")
     del rows1, ends1, lvl1
     torch.cuda.empty_cache()
-    n2b = max(n for n, _inv in fin_shapes["bitrev"])
+    # B2: one NTT at the path's largest size (n2b = 2^24), the powers and
+    # the fused poly_eval at that size; B3: the witness-shaped G1 MSM over
+    # the final key's table A (14,008,649 points) at the card's window
+    n2b = max(n for n, _inv in fin_shapes["pass"])
     a2 = bf.to_mont(bf.FR, bnt.field_elems(bf.FR, n2b, gen_bn, dev))
+    x2 = 0x1234567 << 200 | 0x89ABCDEF
+    w2 = bn_fft.w_fr(n2b.bit_length() - 1)
     bn_entry("B2", "bn254_ntt", "bn254_ntt.cu", "snark/fft.py:56", [n2b],
-             time_ms(lambda: bn_fft.fft(a2), 2),
+             time_ms(lambda: bn_fft.fft(a2), 3),
              once_ms(lambda: bn_fft._ntt_plain(a2, False)),
-             bnt.bound_ntt(n2b),
+             bnt.bound_ntt(n2b), tile_bits=bn_fft.NTT_TILE_BITS,
+             passes=len(bn_fft.ntt_passes(n2b.bit_length() - 1)),
+             powers_shape=[n2b],
+             powers_ms=time_ms(lambda: bn254_cuda.powers(w2, n2b, 1, dev), 3),
+             powers_plain_ms=once_ms(lambda: bn254_cuda.powers_plain(
+                 w2, n2b, 1, dev)),
+             powers_bound_ms=bnt.bound_powers(n2b)[0],
+             poly_eval_shape=[n2b],
+             poly_eval_ms=time_ms(lambda: bn254_cuda.poly_eval(a2, x2), 3),
+             poly_eval_plain_ms=once_ms(lambda: bn254_cuda.poly_eval_plain(
+                 a2, x2)),
+             poly_eval_bound_ms=bnt.bound_poly_eval(n2b)[0],
              mont_mul_ms=time_ms(lambda: bn254_cuda.mont_mul(bf.FR, a2, a2), 3),
-             mont_mul_bound_ms=bnt.bound_mont_mul(n2b)[0])
+             mont_mul_bound_ms=bnt.bound_mont_mul(n2b)[0],
+             per_final_proof_bound_ms=bnt.bound_launches("B2", fin_shapes)[0])
     del a2
     torch.cuda.empty_cache()
     n3 = final_key.n_vars
     s3 = bnt.scalars_like_witness(n3, gen_bn, dev)
     pts3 = final_key.points_a
     sub3 = torch.cat([torch.arange(cap), torch.arange(n3 - cap, n3)]).to(dev)
-    c3 = bn_msm.pick_window(n3)
-    pts3_sub = bn_curve.Point(*[leaf[sub3] for leaf in pts3])
+    c3 = bn_msm.window(n3)
+    # the bound at the window whose schedule needs the fewest products
+    c3_least = bnt.least_window(bn_curve.F1, s3)[0]
+    c3_plain = bn_msm.pick_window(2 * cap)
+    jac3 = bn_msm.jacobian_words(bn_curve.F1, pts3)
     bn_entry("B3", "bn254_msm", "bn254_msm.cu", "snark/msm.py:57", [n3],
-             time_ms(lambda: bn_msm.msm(bn_curve.F1, pts3, s3), 2),
-             once_ms(lambda: bn_msm.msm_plain(bn_curve.F1, pts3_sub,
-                                                s3[sub3], c=c3)),
-             bnt.bound_msm(bn_curve.F1, s3), plain_held=[2 * cap], c=c3,
-             group="G1", scalars="seeded, shaped like the final witness")
-    del s3, pts3, pts3_sub
+             time_ms(lambda: bn_msm.msm(bn_curve.F1, pts3, s3), 3),
+             once_ms(lambda: bn_msm.msm_plain(bn_curve.F1, pts3[sub3],
+                                                s3[sub3], c=c3_plain)),
+             bnt.bound_msm(bn_curve.F1, s3, c3_least), plain_held=[2 * cap],
+             c=c3, bound_c=c3_least,
+             bound_ms_at_c=bnt.bound_msm(bn_curve.F1, s3, c3)[0],
+             plain_c=c3_plain,
+             bound_ms_unsigned=bnt.bound_msm_unsigned(bn_curve.F1, s3, 12)[0],
+             group="G1", scalars="seeded, shaped like the final witness",
+             also_source="merlin_zkevm_prover_tpu_torch/csrc/bn254_msm_sums.cu",
+             affine_ms=time_ms(lambda: bn_msm.affine_bases(bn_curve.F1, jac3),
+                               3),
+             affine_bound_ms=bnt.bound_affine(bn_curve.F1, n3)[0],
+             per_final_proof_bound_ms=bnt.bound_launches("B3", fin_shapes)[0])
+    del s3, pts3, jac3
     torch.cuda.empty_cache()
     s4 = bnt.field_elems(bf.FR, n3, gen_bn, dev)
     sub4 = torch.cat([torch.arange(cap_pts), torch.arange(n3 - cap_pts, n3)]
@@ -2104,11 +2198,10 @@ def main() -> int:
             raise AssertionError(f"golden_final: vk {name} differs")
     for name, pts in g_snark["tables"].items():
         F_ = bn_curve.F2 if name == "points_b2" else bn_curve.F1
-        table = getattr(key3, name)
+        table = getattr(key3, name)          # affine words (B3's bases)
         for i, want in pts.items():
-            got = one_point(F_, bn_curve.Point(*[
-                bn_curve.Fq2El(leaf.c0[int(i)], leaf.c1[int(i)])
-                if F_ is bn_curve.F2 else leaf[int(i)] for leaf in table]))
+            got = json.loads(json.dumps(bn_curve.affine_ints(
+                F_, table[int(i):int(i) + 1])[0]))
             if got != want:
                 raise AssertionError(f"golden_final: {name}[{i}] differs")
     emit({"phase": "golden_final", "seconds": time.time() - t0,
@@ -2138,7 +2231,8 @@ def main() -> int:
     t_ff = time.time()
 
     def keep_shapes():
-        for shapes in (ffk.SHAPES, bn_msm.SHAPES, bn_curve.SHAPES):
+        for shapes in (ffk.SHAPES, bn_msm.SHAPES, bn_curve.SHAPES,
+                       bn254_cuda.SHAPES, bn_fft.SHAPES):
             for k, v in shapes.items():
                 rec_ = ff_shapes.setdefault(k, {})
                 for s_, c_ in v.items():
@@ -2172,7 +2266,8 @@ def main() -> int:
             b: d for b, d in read_bn_counters().items() if b != "B1"}}
         keep_shapes()
         shapes_ = {k: dict(v) for s_ in (ffk.SHAPES, bn_msm.SHAPES,
-                                          bn_curve.SHAPES)
+                                          bn_curve.SHAPES, bn254_cuda.SHAPES,
+                                          bn_fft.SHAPES)
                    for k, v in s_.items()}
         by_kernel = fft_.kernel_device_ms(prof)
         del prof
@@ -2197,6 +2292,13 @@ def main() -> int:
             raise AssertionError(f"fflonk {what}: a tampered proof was "
                                  f"accepted: {rejected}")
         ids = sorted({kernel_of[k] for k in by_kernel})
+        counted = {b: sum(launches_[b].values()) for b in ("B2", "B3", "B4")}
+        profiled = {b: sum(d["launches"] for k, d in by_kernel.items()
+                           if kernel_of[k] == b) for b in counted}
+        if profiled != counted:
+            raise AssertionError(f"fflonk {what}: torch.profiler's launches "
+                                 f"{profiled} differ from the counters "
+                                 f"{counted}")
         line = {"case": what, "stats": dict(stage_.stats), "total_s": total,
                 "spans_s": tlog.as_dict(), "span_peak_bytes": dict(tlog.peaks),
                 "peak_memory_bytes": max(tlog.peaks.values()),
@@ -2209,6 +2311,8 @@ def main() -> int:
                 "profiled_launches": {b: sum(
                     d["launches"] for k, d in by_kernel.items()
                     if kernel_of[k] == b) for b in ids},
+                "bound_ms": {b: bnt.bound_launches(b, shapes_)[0]
+                             for b in ("B2", "B3")},
                 "verified": True, "tampered_rejected": rejected,
                 "launched_shapes": {k: sorted(
                     [[list(s_) if isinstance(s_, tuple) else s_, c_]
@@ -2307,17 +2411,23 @@ def main() -> int:
     # first and last 64 chains, the rows between checked equal to the row
     # the scan enters them by; inverses and quotient parts on the first and
     # last 4096 elements or points (seeded, edge values 0, 1, r - 1 at both
-    # ends).  B3 at full random scalars: at every distinct G1 point count
-    # of the phase (its window: pick_window), over the prefix key's SRS
+    # ends).  B2's NTT passes, powers and fused poly_eval, and B3's
+    # batch-to-affine, digit kernels, bucket sums and reduce, at every
+    # logged shape.  B3 at full random scalars: at every distinct G1 point
+    # count of the phase (the card's window), over the prefix key's SRS
     # (tau^i G) with every scalar full and random, against [sum s_i tau^i]
     # G (the scalar in Fr on the card, the point in python ints); at the
     # largest, with full scalars on the first and last 4096 points and zero
-    # between, against msm_plain on those at the same window.
+    # between, against msm_plain on those.
     ff_holds = []
-    ff_worst = {"F1": 0, "F2": 0, "F3": 0, "B3": 0, "B4": 0}
+    ff_worst = {"F1": 0, "F2": 0, "F3": 0, "B2": 0, "B3": 0, "B4": 0}
+
+    hold_clock[0] = time.time()
 
     def ff_hold(kid, res):
-        res = {**res, "kernel_id": kid}
+        res = {**res, "kernel_id": kid,
+               "s": round(time.time() - hold_clock[0], 2)}
+        hold_clock[0] = time.time()
         ff_holds.append(res)
         ff_worst[kid] = max(ff_worst[kid], res["max_abs_err"])
         if res["max_abs_err"] != 0:
@@ -2332,6 +2442,22 @@ def main() -> int:
     for (part, n) in sorted(ff_shapes.get("quotient", {})):
         ff_hold("F3", fft_.hold_quotient(part, n, gen_ff, dev))
         torch.cuda.empty_cache()
+    # B2: the NTT sizes above final_holds' 2^24, the powers and poly_eval
+    for (n, inverse) in sorted(ff_shapes.get("pass", {})):
+        if n > 1 << 24:
+            a = bf.to_mont(bf.FR, bnt.field_elems(bf.FR, n, gen_ff, dev))
+            ff_hold("B2", bnt.hold_ntt(a, inverse))
+            del a
+            torch.cuda.empty_cache()
+    # powers: one base a logged length (the launches differ in their
+    # length; the bases are data)
+    for n, (base, start) in sorted({n: (b_, st) for (b_, n, st) in
+                                    ff_shapes.get("powers", {})}.items()):
+        ff_hold("B2", bnt.hold_powers(base, n, start, dev))
+    for (m, stride) in sorted(ff_shapes.get("poly_eval", {})):
+        ff_hold("B2", bnt.hold_poly_eval(m, gen_ff, dev, stride))
+    torch.cuda.empty_cache()
+    b3_new_holds(ff_shapes, gen_ff, ff_hold)
     srs_c = stage_c.key.srs_g1
     tau_c = int.from_bytes(ffl.keccak256(b"fflonk-dev-srs" + stage_c.setup_seed
                                          .to_bytes(8, "big")), "big") % bf.FR.mod
@@ -2352,8 +2478,8 @@ def main() -> int:
     s_big = torch.zeros((n_big, 4), dtype=torch.int64, device=dev)
     sel_big = fft_._ends_idx(n_big, 4096, dev)
     s_big[sel_big] = bnt.field_elems(bf.FR, sel_big.numel(), gen_ff, dev)
-    ff_hold("B3", {**bnt.hold_msm(bn_curve.F1, bn_curve.unpack(
-        bn_curve.F1, srs_c[:n_big]), s_big, c=bn_msm.pick_window(n_big)),
+    ff_hold("B3", {**bnt.hold_msm(bn_curve.F1, srs_c[:n_big], s_big,
+                                  c=bn_msm.window(n_big)),
         "scalars": "full random on the first and last 4096, zero between"})
     del s_big, sel_big, srs_c, stage_c
     torch.cuda.empty_cache()
@@ -2374,6 +2500,11 @@ def main() -> int:
             e["fflonk_device_ms"] = ff_b["device_ms"].get(kid, 0.0)
             e["fflonk_prefix_launches"] = sum(ff_c["launches"][kid].values())
             e["fflonk_prefix_device_ms"] = ff_c["device_ms"].get(kid, 0.0)
+            e["fflonk_prefix_launches_by_kernel"] = ff_c["launches"][kid]
+            if kid in ("B2", "B3"):
+                e["max_abs_err"] = max(e["max_abs_err"], ff_worst[kid])
+                e["fflonk_bound_ms"] = ff_b["bound_ms"][kid]
+                e["fflonk_prefix_bound_ms"] = ff_c["bound_ms"][kid]
 
     def ff_entry(kid, name, launches_, shape, ms, plain_ms, bound, **extra):
         entries.append({

@@ -139,8 +139,9 @@ def point_from_reference(F, p, device=None):
 
 def groth16_key_from_reference(key, device=None):
     """A reference ``Groth16Key`` (points as numpy leaves) -> the port's,
-    the coefficient table as numpy columns."""
-    from .snark import curve
+    the coefficient table as numpy columns, the point tables affine
+    (``msm.affine_bases``)."""
+    from .snark import curve, msm
     from .snark.groth16 import Groth16Key
     from .snark.setup import Coefs
 
@@ -149,15 +150,18 @@ def groth16_key_from_reference(key, device=None):
     def pt(F, p):
         return None if p is None else point_from_reference(F, p, device)
 
+    def table(F, p):
+        return None if p is None else msm.affine_bases(F, pt(F, p))
+
     return Groth16Key(
         n_vars=key.n_vars, n_public=key.n_public, domain_bits=key.domain_bits,
         coefs=Coefs.from_list(key.coefs),
         vk_alpha1=pt(F1, key.vk_alpha1), vk_beta1=pt(F1, key.vk_beta1),
         vk_delta1=pt(F1, key.vk_delta1), vk_beta2=pt(F2, key.vk_beta2),
         vk_delta2=pt(F2, key.vk_delta2),
-        points_a=pt(F1, key.points_a), points_b1=pt(F1, key.points_b1),
-        points_b2=pt(F2, key.points_b2), points_c=pt(F1, key.points_c),
-        points_h=pt(F1, key.points_h))
+        points_a=table(F1, key.points_a), points_b1=table(F1, key.points_b1),
+        points_b2=table(F2, key.points_b2), points_c=table(F1, key.points_c),
+        points_h=table(F1, key.points_h))
 
 
 # ---------------------------------------------------------------------------
@@ -197,20 +201,11 @@ def plonk_values_to_reference(*vals):
 
 
 def g1_words_from_affine(pairs, device=None):
-    """Affine G1 points (python-int pairs, None for infinity) -> (m, 12)
-    packed Jacobian words (``curve.pack``)."""
+    """Affine G1 points (python-int pairs, None for infinity) -> (m, 8)
+    affine words (``msm.affine_bases``' form: the SRS's)."""
     from .snark import curve
 
-    F1 = curve.F1
-    xs = [p[0] if p is not None else 1 for p in pairs]
-    ys = [p[1] if p is not None else 1 for p in pairs]
-    pts = curve.from_affine(F1, F1.from_int(xs, device),
-                            F1.from_int(ys, device))
-    words = curve.pack(F1, pts)
-    inf = [i for i, p in enumerate(pairs) if p is None]
-    if inf:
-        words[inf] = curve.pack(F1, curve.infinity(F1, (len(inf),), device))
-    return words
+    return curve.affine_words_from_ints(curve.F1, pairs, device)
 
 
 def fflonk_key_from_reference(key, device=None):
@@ -234,8 +229,7 @@ def fflonk_key_to_reference(key) -> Dict[str, Any]:
     from .snark import fflonk as pf
 
     return {"cs": plonk_cs_to_reference(key.cs),
-            "srs_g1": curve.affine_ints(curve.F1,
-                                        curve.unpack(curve.F1, key.srs_g1)),
+            "srs_g1": curve.affine_ints(curve.F1, key.srs_g1),
             "x2": key.x2, "C0": key.C0,
             "c0_coefs": pf.fr_ints(key.c0_coefs),
             "sel_coefs": {k: pf.fr_ints(v) for k, v in key.sel_coefs.items()},

@@ -7,7 +7,11 @@
     and the pointwise products of the Groth16 prover.
 ``mul_sub``    a * b - c over Fr: Groth16's H values on the coset.
 ``powers``     start * base^i for i < n over Fr: twiddle and coset tables,
-    one square-and-multiply a thread.
+    the setup's domains, fflonk's row powers; a thread makes 64 of them,
+    one product each after the first (``BN_POWERS_RUN``).
+``poly_eval``  sum_i c_i x^i over Fr in one launch: the powers made as
+    ``powers`` makes them and never written, the products summed in each
+    block, the blocks' sums by the block that finishes last.
 
 Each takes the plain twin only for a CPU tensor; on a CUDA tensor it
 launches its kernel or raises.  ``LAUNCHES`` counts kernel launches and
@@ -28,9 +32,9 @@ from . import cuda_build
 from .bn254_field import FR, FpCtx
 from .goldilocks import resolve_device
 
-LAUNCHES = {"mont_mul": 0, "mul_sub": 0, "powers": 0}
+LAUNCHES = {"mont_mul": 0, "mul_sub": 0, "powers": 0, "poly_eval": 0}
 # launches by shape: mont_mul (field, n, b one element), mul_sub n,
-# powers (base, n, start)
+# powers (base, n, start), poly_eval (m, rows apart)
 SHAPES: dict = {}
 
 _vp = ctypes.c_void_p
@@ -110,19 +114,85 @@ def powers_plain(base: int, n: int, start: int = 1, device=None) -> torch.Tensor
     return bf.from16(out[:n])
 
 
+def _square_table(base: int, n: int, device) -> torch.Tensor:
+    """base^(2^i), Montgomery, for i below the bit length of n - 1 (at
+    least one entry): a thread's first power by square-and-multiply."""
+    vals, b = [], base % FR.mod
+    for _ in range(max(1, (n - 1).bit_length())):
+        vals.append(b)
+        b = b * b % FR.mod
+    return bf.from_int(FR, vals, device)
+
+
 def powers(base: int, n: int, start: int = 1, device=None) -> torch.Tensor:
     """start * base^i over Fr for i < n, Montgomery form, on `device`
     (``None``: the GPU)."""
     device = resolve_device(device)
     if device.type != "cuda":
         return powers_plain(base, n, start, device)
-    b = bf.const(FR, base, device)
-    s = bf.const(FR, start, device)
     out = torch.empty((n, bf.N_LIMBS), dtype=torch.int64, device=device)
     if n == 0:
         return out
-    cuda_build.check(cuda_build.lib().merlin_bn_fr_powers(
-        _vp(b.data_ptr()), _vp(s.data_ptr()), n, _vp(out.data_ptr()),
-        _vp(cuda_build.stream_ptr())), "bn254 powers")
+    lib = cuda_build.lib()
+    sq = _square_table(base, n, device)
+    s = bf.const(FR, start, device)
+    # a thread's powers lie a block apart
+    step = bf.const(FR, pow(base, lib.merlin_bn_fr_run_threads(), FR.mod),
+                    device)
+    cuda_build.check(lib.merlin_bn_fr_powers(
+        _vp(sq.data_ptr()), _vp(s.data_ptr()), _vp(step.data_ptr()), n,
+        _vp(out.data_ptr()), _vp(cuda_build.stream_ptr())), "bn254 powers")
     cuda_build.count(LAUNCHES, SHAPES, "powers", (base, n, start))
+    return out
+
+
+def _sum_plain(v: torch.Tensor) -> torch.Tensor:
+    """The sum of the rows of a (m, 16) plain-form Fr tensor, (1, 16): a
+    tree of pairs."""
+    while v.shape[0] > 1:
+        half = v.shape[0] // 2
+        s = bf.add16(FR, v[:half], v[half:2 * half])
+        v = torch.cat([s, v[2 * half:]]) if v.shape[0] % 2 else s
+    return v
+
+
+def poly_eval_plain(coefs: torch.Tensor, x: int) -> torch.Tensor:
+    """sum_i c_i x^i, Montgomery (4,): ``mont_mul_plain`` of the
+    coefficients and ``powers_plain``, summed."""
+    m = coefs.shape[0]
+    if m == 0:
+        return torch.zeros(bf.N_LIMBS, dtype=torch.int64, device=coefs.device)
+    prods = mont_mul_plain(FR, coefs, powers_plain(x % FR.mod, m,
+                                                   device=coefs.device))
+    return bf.from16(_sum_plain(bf.to16(prods)))[0]
+
+
+def poly_eval(coefs: torch.Tensor, x: int) -> torch.Tensor:
+    """sum_i c_i x^i over Fr for (m, 4) Montgomery coefficients (rows may
+    lie any fixed distance apart, as a strided slice's do), Montgomery
+    (4,): one launch, no power table written."""
+    if not coefs.is_cuda:
+        return poly_eval_plain(coefs, x)
+    _check(coefs, "poly_eval")
+    m = coefs.shape[0]
+    dev = coefs.device
+    out = torch.zeros(bf.N_LIMBS, dtype=torch.int64, device=dev)
+    if m == 0:
+        return out
+    if coefs.stride(1) != 1:
+        coefs = coefs.contiguous()
+    x %= FR.mod
+    lib = cuda_build.lib()
+    sq = _square_table(x, m, dev)
+    step = bf.const(FR, pow(x, lib.merlin_bn_fr_run_threads(), FR.mod), dev)
+    partials = torch.empty((lib.merlin_bn_fr_poly_eval_blocks(m), bf.N_LIMBS),
+                           dtype=torch.int64, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    cuda_build.check(lib.merlin_bn_fr_poly_eval(
+        _vp(coefs.data_ptr()), coefs.stride(0), m, _vp(sq.data_ptr()),
+        _vp(step.data_ptr()), _vp(partials.data_ptr()),
+        _vp(counter.data_ptr()), _vp(out.data_ptr()),
+        _vp(cuda_build.stream_ptr())), "bn254 poly_eval")
+    cuda_build.count(LAUNCHES, SHAPES, "poly_eval",
+                     (m, coefs.stride(0) // bf.N_LIMBS))
     return out

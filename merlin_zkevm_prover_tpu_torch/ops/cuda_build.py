@@ -163,16 +163,21 @@ def lib() -> ctypes.CDLL:
                     ("merlin_bn_poseidon_sponge", [vp, ll, ci, ci, ci, ci, vp,
                                                    ci, vp, vp, vp, vp]),
                     ("merlin_bn_poseidon_node", [vp, ll, vp, vp, vp, vp]),
-                    ("merlin_bn_fr_bitrev", [vp, ll, ci, vp, vp]),
-                    ("merlin_bn_fr_ntt_stage", [vp, ll, ci, ci, vp, vp]),
-                    ("merlin_bn_fr_powers", [vp, vp, ll, vp, vp]),
+                    ("merlin_bn_fr_ntt_pass", [vp, vp, ci, ci, ci, ci, vp, vp,
+                                               vp]),
+                    ("merlin_bn_fr_powers", [vp, vp, vp, ll, vp, vp]),
+                    ("merlin_bn_fr_poly_eval", [vp, ll, ll, vp, vp, vp, vp, vp,
+                                                vp]),
                     ("merlin_bn_mont_mul", [ci, vp, vp, ll, ll, vp, vp]),
                     ("merlin_bn_fr_mul_sub", [vp, vp, vp, ll, vp, vp]),
-                    ("merlin_bn_msm_digits", [vp, ll, ci, ci, ci, ci, vp, vp]),
+                    ("merlin_bn_to_affine", [ci, vp, ll, vp, vp]),
+                    ("merlin_bn_msm_digits", [ci, vp, vp, ci, ll, ci, ci, ci,
+                                              ci, vp, vp, vp]),
+                    ("merlin_bn_msm_bucket_sums", [ci, vp, vp, vp, vp, vp, ll,
+                                                   vp, vp]),
                     ("merlin_bn_sum_ranges", [ci, vp, vp, vp, vp, ll, vp, vp]),
-                    ("merlin_bn_bucket_reduce", [ci, vp, ci, ci, ci, vp, vp]),
-                    ("merlin_bn_window_reduce", [ci, vp, ci, ci, ci, vp, vp]),
-                    ("merlin_bn_window_combine", [ci, vp, ci, ci, vp, vp]),
+                    ("merlin_bn_msm_reduce", [ci, vp, ci, ci, vp, vp, vp,
+                                              vp]),
                     ("merlin_bn_fixed_base", [ci, vp, vp, ll, ci, vp, vp]),
                     # the fflonk kernels (F1-F3)
                     ("merlin_bn_fr_scan", [vp, ll, ll, ll, ci, ci, vp, vp, vp]),
@@ -183,6 +188,12 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(cdll, name)
                 fn.argtypes = args
                 fn.restype = ci
+            cdll.merlin_bn_fr_poly_eval_blocks.argtypes = [ll]
+            cdll.merlin_bn_fr_poly_eval_blocks.restype = ll
+            cdll.merlin_bn_fr_run_threads.argtypes = []
+            cdll.merlin_bn_fr_run_threads.restype = ci
+            cdll.merlin_bn_msm_reduce_threads.argtypes = [ll]
+            cdll.merlin_bn_msm_reduce_threads.restype = ci
             _lib = cdll
         return _lib
 

@@ -383,12 +383,20 @@ def to_affine(F, p: Point):
     return F.join(x), F.join(y), inf
 
 
-def affine_ints(F, p: Point) -> List:
+def affine_ints(F, p) -> List:
     """Every point of `p` as python ints: None for infinity, (x, y) over
     Fq, ((x0, x1), (y0, y1)) over Fq2; the form in which two projective
-    forms of one point compare equal."""
-    x, y, inf = to_affine(F, p)
-    inf = inf.reshape(-1).tolist()
+    forms of one point compare equal.  `p` a Point, or (n, 2 W) affine
+    words (x then y, Montgomery; an x of all ones for infinity: the form
+    of B3's bases, ``msm.affine_bases``)."""
+    if isinstance(p, torch.Tensor):
+        k = F.words
+        inf = (p[:, 3] == -1).tolist()
+        x = F.unflat(p[:, :k])
+        y = F.unflat(p[:, k:])
+    else:
+        x, y, inf = to_affine(F, p)
+        inf = inf.reshape(-1).tolist()
     if F is F1:
         xs = bf.to_int(FQ, x).reshape(-1)
         ys = bf.to_int(FQ, y).reshape(-1)
@@ -398,6 +406,23 @@ def affine_ints(F, p: Point) -> List:
     y0, y1 = (bf.to_int(FQ, c).reshape(-1) for c in y)
     return [None if i else ((int(a0), int(a1)), (int(b0), int(b1)))
             for i, a0, a1, b0, b1 in zip(inf, x0, x1, y0, y1)]
+
+
+def affine_words_from_ints(F, pts, device=None) -> torch.Tensor:
+    """(n, 2 W) affine words of python-int points (None for infinity), as
+    ``affine_ints`` gives them."""
+    device = resolve_device(device)
+    rows = []
+    for p in pts:
+        if p is None:
+            rows.append([(1 << 256) - 1] * (F.words // 4) + [0] * (F.words // 4))
+        elif F is F1:
+            rows.append([c * FQ.r % _Q for c in p])
+        else:
+            rows.append([c * FQ.r % _Q for xy in p for c in xy])
+    flat = [v for r in rows for v in r]
+    return bf.from_u64(bf.ints_to_limbs(flat), device).reshape(
+        len(rows), 2 * F.words)
 
 
 def scalar_bits(scalars: torch.Tensor) -> torch.Tensor:

@@ -20,8 +20,8 @@ The same key, proof and transcript as the JAX package's ``snark/fflonk.py``
 (python ints throughout), with the polynomials on the device: (m, 4)
 Montgomery tensors (``ops/bn254_field.py``).  FFTs are kernel B2
 (``snark/fft.py``), evaluations B2's power table times the coefficients
-summed by B3's Fr range sum, commitments B3's MSM over the SRS table
-(made by B4 and kept packed), divisions by ``X^k - beta``, the grand
+in one fused B2 launch, commitments B3's MSM over the SRS table (made by
+B4, made affine once by B3 and kept so), divisions by ``X^k - beta``, the grand
 product's prefix products and sums of polynomials kernel F1 (``scan``),
 inverses F2, the quotient numerators F3 (``ops/bn254_fflonk_cuda.py``).
 The transcript, the root sets, the interpolations on at most 18 points
@@ -187,21 +187,15 @@ def poly_extend_evals(coefs: torch.Tensor, n_out: int) -> torch.Tensor:
 
 def poly_eval(coefs, x: int) -> int:
     """sum_i c_i x^i: host Horner for a list of ints; for a (m, 4)
-    Montgomery tensor, B2's powers of x times the coefficients, summed by
-    B3's Fr range sum."""
+    Montgomery tensor, B2's fused evaluation (no power table written)."""
     if not isinstance(coefs, torch.Tensor):
         acc = 0
         for c in reversed(coefs):
             acc = (acc * x + c) % FR
         return acc
-    m = coefs.shape[0]
-    if m == 0:
+    if coefs.shape[0] == 0:
         return 0
-    dev = coefs.device
-    prods = bn254_cuda.mont_mul(CTX, coefs,
-                                bn254_cuda.powers(x % FR, m, device=dev))
-    keys = torch.zeros(m, dtype=torch.int64, device=dev)
-    return fr_ints(msm.sum_by_key(None, prods, keys, None, 1))[0]
+    return fr_ints(bn254_cuda.poly_eval(coefs, x)[None])[0]
 
 
 def poly_mul_scalar(coefs: torch.Tensor, k: int) -> torch.Tensor:
@@ -341,7 +335,7 @@ class PlonkCS:
 @dataclass
 class FflonkKey:
     cs: PlonkCS
-    srs_g1: torch.Tensor            # (9n + 32, 12) tau^i G1, packed words
+    srs_g1: torch.Tensor            # (9n + 32, 8) tau^i G1, affine words
     x2: tuple                       # tau * G2, affine python ints
     C0: Optional[Tuple[int, int]]
     c0_coefs: torch.Tensor          # Montgomery (m, 4)
@@ -387,7 +381,7 @@ def fflonk_setup(cs: PlonkCS, seed: int = 0, device=None) -> FflonkKey:
     """Dev SRS + C0 commitment (the reference consumes a snarkjs zkey;
     zkey_fflonk.cpp sections map 1:1 onto this structure).  The SRS
     tau^i G1 (i < 9n + 32) is B2's power table through B4, on `device`
-    (``None``: the GPU), kept packed."""
+    (``None``: the GPU), made affine once (B3's bases)."""
     device = resolve_device(device)
     n = cs.n
     check_domain(n)
@@ -395,7 +389,8 @@ def fflonk_setup(cs: PlonkCS, seed: int = 0, device=None) -> FflonkKey:
     tau = rng % FR
     max_deg = 9 * n + 32
     tau_pows = bf.from_mont(CTX, bn254_cuda.powers(tau, max_deg, device=device))
-    srs = curve.scalar_mul_words(curve.F1, curve.g1_generator(device), tau_pows)
+    srs = msm.affine_bases(curve.F1, curve.scalar_mul_words(
+        curve.F1, curve.g1_generator(device), tau_pows))
     del tau_pows
     x2 = g2_mul(tau, G2_GEN)
 

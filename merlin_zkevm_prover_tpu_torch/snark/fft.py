@@ -4,12 +4,14 @@ kernel B2 and its plain twin.
 Counterpart of the reference's ``snark/fft.py``: the same in-order DIT
 transform (a bit-reversal gather, then log2 n stages, twiddles root^k from
 a table of n / 2 powers), natural order in and out, the inverse scaled by
-1/n.  On a CUDA tensor the stages run in ``csrc/bn254_ntt.cu`` (one launch
-a stage, one thread a butterfly; the tables by the ``powers`` kernel); on
-the CPU ``_ntt_plain`` runs the reference's stages in the plain arithmetic.
-Used by the Groth16 prover's 3x (iFFT -> coset shift -> FFT) pipeline
-(reference src/rapidsnark/groth16.c.hpp:49-204).  Elements are Montgomery
-(n, 4) tensors.
+1/n.  On a CUDA tensor the stages run in ``csrc/bn254_ntt.cu`` in passes
+of up to ``NTT_TILE_BITS`` stages (``ntt_passes``: one launch a pass, each
+pass's tiles in shared memory, the bit reversal in the first pass's loads
+and 1/n in the inverse's last stores; the tables by the ``powers``
+kernel); on the CPU ``_ntt_plain`` runs the reference's stages in the
+plain arithmetic.  Used by the Groth16 prover's 3x (iFFT -> coset shift ->
+FFT) pipeline (reference src/rapidsnark/groth16.c.hpp:49-204).  Elements
+are Montgomery (n, 4) tensors.
 """
 
 from __future__ import annotations
@@ -28,7 +30,12 @@ from ..ops.bn254_field import FR
 FR_GENERATOR = 5
 FR_TWO_ADICITY = 28
 
-LAUNCHES = {"bitrev": 0, "stage": 0}
+# stages a pass: a tile of 2^NTT_TILE_BITS elements (32 KB) in shared
+# memory (tools/bn254_times.py --ntt-tiles: 10 the fastest of 9 to 12; at
+# most 12)
+NTT_TILE_BITS = 10
+
+LAUNCHES = {"pass": 0}
 SHAPES: dict = {}   # launches by shape: (n, inverse)
 
 _vp = ctypes.c_void_p
@@ -73,6 +80,24 @@ def _bitrev(nbits: int, device) -> torch.Tensor:
     return rev
 
 
+def ntt_passes(nbits: int, k: int = None):
+    """The passes of an NTT of 2^nbits elements, (s0, kp, cb) each: stages
+    s0 + 1 .. s0 + kp on tiles of 2^(kp + cb) elements, cb of the index
+    bits below s0 in a tile; ceil(nbits / k) passes of as even a size as
+    can be, the larger first; a tile of 2^k elements where the bits below
+    s0 allow."""
+    k = k or NTT_TILE_BITS
+    if nbits < 1:
+        return []
+    count = -(-nbits // k)
+    out, s0 = [], 0
+    for p in range(count):
+        kp = nbits // count + (p < nbits % count)
+        out.append((s0, kp, min(k - kp, s0)))
+        s0 += kp
+    return out
+
+
 def _ntt_plain(a: torch.Tensor, inverse: bool) -> torch.Tensor:
     """The reference's `_fft_core` in the plain arithmetic."""
     nbits = _nbits(a)
@@ -106,18 +131,18 @@ def _ntt(a: torch.Tensor, inverse: bool) -> torch.Tensor:
     x = torch.empty_like(a)
     lib = cuda_build.lib()
     stream = _vp(cuda_build.stream_ptr())
-    cuda_build.check(lib.merlin_bn_fr_bitrev(
-        _vp(a.data_ptr()), n, nbits, _vp(x.data_ptr()), stream), "bn254 bitrev")
-    cuda_build.count(LAUNCHES, SHAPES, "bitrev", (n, inverse))
     tw = _twiddles(nbits, inverse, a.device)
-    for s in range(1, nbits + 1):
-        cuda_build.check(lib.merlin_bn_fr_ntt_stage(
-            _vp(x.data_ptr()), n, s, nbits, _vp(tw.data_ptr()), stream),
-            "bn254 ntt stage")
-        cuda_build.count(LAUNCHES, SHAPES, "stage", (n, inverse))
-    if inverse:
-        x = bn254_cuda.mont_mul(FR, x, bf.const(FR, pow(n, FR.mod - 2, FR.mod),
-                                                a.device))
+    scale = bf.const(FR, pow(n, FR.mod - 2, FR.mod), a.device) \
+        if inverse else None
+    passes = ntt_passes(nbits)
+    for p, (s0, kp, cb) in enumerate(passes):
+        last = p == len(passes) - 1
+        cuda_build.check(lib.merlin_bn_fr_ntt_pass(
+            _vp((a if p == 0 else x).data_ptr()), _vp(x.data_ptr()), nbits,
+            s0, kp, cb, _vp(tw.data_ptr()),
+            _vp(scale.data_ptr() if last and inverse else None), stream),
+            "bn254 ntt pass")
+        cuda_build.count(LAUNCHES, SHAPES, "pass", (n, inverse))
     return x
 
 

@@ -10,7 +10,8 @@ Flow, identical to the reference:
 
 The FFTs (kernel B2), the MSMs (B3) and the blinding's scalar products (B4)
 run on the key's device, and so does the coefficient scatter
-(``build_abc``).
+(``build_abc``).  The key's point tables are B3's bases: affine words
+(``msm.affine_bases``), made affine once where the key is made.
 """
 
 from __future__ import annotations
@@ -43,15 +44,16 @@ class Groth16Key:
     vk_delta1: Point
     vk_beta2: Point        # G2
     vk_delta2: Point
-    points_a: Point        # (n_vars,) G1
-    points_b1: Point       # (n_vars,) G1
-    points_b2: Point       # (n_vars,) G2
-    points_c: Point        # (n_vars - n_public - 1,) G1
-    points_h: Point        # (2^domain_bits,) G1
+    # the tables as (rows, 2 W) affine words (msm.affine_bases)
+    points_a: torch.Tensor   # (n_vars,) G1
+    points_b1: torch.Tensor  # (n_vars,) G1
+    points_b2: torch.Tensor  # (n_vars,) G2
+    points_c: torch.Tensor   # (n_vars - n_public - 1,) G1
+    points_h: torch.Tensor   # (2^domain_bits,) G1
 
     @property
     def device(self) -> torch.device:
-        return self.points_a.x.device
+        return self.points_a.device
 
 
 def _ints_to_limbs(vals, device) -> torch.Tensor:
@@ -93,6 +95,12 @@ def key_from_zkey(zk, device=None) -> Groth16Key:
     def g2(p):
         return _index0(F2, _g2_table_from_affine([p], device))
 
+    def table(F, pairs):
+        zero = (0, 0) if F is F1 else ((0, 0), (0, 0))
+        return curve.affine_words_from_ints(
+            F, [None if tuple(map(_tuple, p)) == zero else p for p in pairs],
+            device)
+
     return Groth16Key(
         n_vars=zk.n_vars, n_public=zk.n_public,
         domain_bits=int(math.log2(zk.domain_size)),
@@ -100,13 +108,16 @@ def key_from_zkey(zk, device=None) -> Groth16Key:
         vk_alpha1=g1(zk.alpha1), vk_beta1=g1(zk.beta1),
         vk_delta1=g1(zk.delta1), vk_beta2=g2(zk.beta2),
         vk_delta2=g2(zk.delta2),
-        points_a=_g1_table_from_affine(zk.points_a, device),
-        points_b1=_g1_table_from_affine(zk.points_b1, device),
-        points_b2=_g2_table_from_affine(zk.points_b2, device),
-        points_c=_g1_table_from_affine(zk.points_c, device)
-        if zk.points_c else None,
-        points_h=_g1_table_from_affine(zk.points_h, device),
+        points_a=table(F1, zk.points_a),
+        points_b1=table(F1, zk.points_b1),
+        points_b2=table(F2, zk.points_b2),
+        points_c=table(F1, zk.points_c) if zk.points_c else None,
+        points_h=table(F1, zk.points_h),
     )
+
+
+def _tuple(c):
+    return tuple(c) if isinstance(c, (list, tuple)) else c
 
 
 def _index0(F, p: Point) -> Point:

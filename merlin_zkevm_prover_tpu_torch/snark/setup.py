@@ -13,8 +13,9 @@ coefficient; here the domain points come from the power kernel, the
 inverses from elementwise exponentiation, the per-signal sums from the
 products of kernel B2 and the range sums of B3's ``msm.sum_by_key``), the
 same points (kernel B4 on the
-card, its twin on the CPU).  The coefficient table is kept as columns on
-the device (``Coefs``).
+card, its twin on the CPU), the tables made affine once (B3's
+``msm.affine_bases``: the bases of the prover's MSMs).  The coefficient
+table is kept as columns on the device (``Coefs``).
 """
 
 from __future__ import annotations
@@ -246,6 +247,10 @@ def setup(r1cs: R1CS, tau: int = None, alpha: int = None, beta: int = None,
     with _piece(timer, "SETUP_POINTS", device):
         g1 = curve.g1_generator(device)
         g2 = curve.g2_generator(device)
+
+        def table(F, base, scalars):
+            return msm.affine_bases(F, curve.scalar_mul_words(F, base, scalars))
+
         key = Groth16Key(
             n_vars=r1cs.n_vars,
             n_public=r1cs.n_public,
@@ -256,12 +261,11 @@ def setup(r1cs: R1CS, tau: int = None, alpha: int = None, beta: int = None,
             vk_delta1=curve.scalar_mul(F1, g1, delta),
             vk_beta2=curve.scalar_mul(F2, g2, beta),
             vk_delta2=curve.scalar_mul(F2, g2, delta),
-            points_a=curve.scalar_mul_table(F1, g1, u_plain),
-            points_b1=curve.scalar_mul_table(F1, g1, v_plain),
-            points_b2=curve.scalar_mul_table(F2, g2, v_plain),
-            points_c=curve.scalar_mul_table(F1, g1, c_scalars)
-            if c_scalars.shape[0] else None,
-            points_h=curve.scalar_mul_table(F1, g1, h_scalars),
+            points_a=table(F1, g1, u_plain),
+            points_b1=table(F1, g1, v_plain),
+            points_b2=table(F2, g2, v_plain),
+            points_c=table(F1, g1, c_scalars) if c_scalars.shape[0] else None,
+            points_h=table(F1, g1, h_scalars),
         )
     toxic = {"tau": tau, "alpha": alpha, "beta": beta, "delta": delta,
              "u": FrVector(u), "v": FrVector(v), "w": FrVector(wv)}

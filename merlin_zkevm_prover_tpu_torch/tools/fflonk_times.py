@@ -161,7 +161,7 @@ def hold_msm_full(n: int, c: int, gen, device, cap: int = 4096) -> Dict:
     """B3 at a commitment's point count and window with full random
     scalars: n seeded points [k_i] G, every scalar full and random but
     zero outside the first and last `cap`, against msm_plain on those 2 cap
-    at the same c (bn254_times.hold_msm)."""
+    (bn254_times.hold_msm)."""
     ks = field_elems(FR, n, gen, device)
     pts = curve.scalar_mul_words(curve.F1, curve.g1_generator(device), ks)
     s = torch.zeros((n, bf.N_LIMBS), dtype=torch.int64, device=device)
@@ -183,7 +183,7 @@ def hold_commit_full(srs: torch.Tensor, tau: int, m: int, gen, device) -> Dict:
     e = pf.poly_eval(bf.to_mont(FR, s), tau)
     want = g1_mul(e, G1_GEN) if e else None
     return {"kernel": "B3 msm", "group": "G1", "n": m,
-            "c": msm.pick_window(m), "scalars": "full random, every point",
+            "c": msm.window(m), "scalars": "full random, every point",
             "against": "[sum s_i tau^i] G in python ints",
             "max_abs_err": 0 if got == want else 1}
 

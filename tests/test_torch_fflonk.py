@@ -177,6 +177,7 @@ from merlin_zkevm_prover_tpu.snark.setup import R1CS as JaxR1CS  # noqa: E402
 from merlin_zkevm_prover_tpu.utils.keccak import keccak256 as jax_keccak  # noqa: E402
 
 from merlin_zkevm_prover_tpu_torch import convert  # noqa: E402
+from merlin_zkevm_prover_tpu_torch.ops import bn254_cuda  # noqa: E402
 from merlin_zkevm_prover_tpu_torch.ops import bn254_fflonk_cuda as ffk  # noqa: E402
 from merlin_zkevm_prover_tpu_torch.recursion.final import FinalStage  # noqa: E402
 from merlin_zkevm_prover_tpu_torch.snark import fflonk as pf  # noqa: E402
@@ -430,6 +431,26 @@ def test_key_round_trip(proven_n8):
     assert len(fields["srs_g1"]) == 9 * 8 + 32
     assert fields["srs_g1"][0] == G1_GEN
     assert jkey.cs.sigma == mul_circuit(15, 3, 5)[0]["sigma"]
+
+
+@pytest.mark.parametrize("m", [0, 1, 63, 64, 65, 200])
+def test_fused_poly_eval_twin_matches_horner_and_reference(m):
+    """B2's fused evaluation (bn254_cuda.poly_eval's twin: mont_mul_plain
+    of the coefficients and powers_plain, summed) against the host Horner
+    at the top of fflonk.poly_eval and the JAX package's poly_eval, over a
+    whole table and a strided slice (C1's a(X) = C1[0::4], as round 3
+    reads it)."""
+    rng = random.Random(m)
+    coefs = [0, 1, FR - 1][:m] + [rng.randrange(FR) for _ in range(m - min(m, 3))]
+    x = rng.randrange(FR)
+    want = jf.poly_eval(coefs, x)
+    assert pf.poly_eval(coefs, x) == want
+    assert pf.poly_eval(_t(coefs), x) == want
+    got = bn254_cuda.poly_eval(_t(coefs), x)
+    assert got.shape == (4,) and _ints(got[None]) == [want]
+    wide = _t([c for v in coefs for c in (v, 1, 2, 3)])
+    assert pf.poly_eval(wide[0::4], x) == want
+    assert pf.poly_eval(wide[1::4], x) == jf.poly_eval([1] * m, x)
 
 
 def _seeded():
