@@ -33,7 +33,11 @@ and the exit code is non-zero unless every phase passed):
            6,000-instruction random program, on a program whose
            destinations alias its operands, on the wide circuit's step-4
            program at 2^18 rows, on a 400-register program whose registers
-           spill to device memory, and at n = 2^16 + 5 rows
+           spill to device memory, and at n = 2^16 + 5 rows.  These holds
+           run in a second process (``--kernel-holds``) while phase final
+           builds its R1CS (host python, nothing launched on the card);
+           their line comes just before final_holds'; K2 at (2^18, 665) is
+           timed up front, on the card alone
   permute  K1's path: the batched permutation entry point
            (``ops.poseidon_gl.permute``) on a (12, 270600) state, the
            PoseidonG state machine's capacity at 2^23 rows; columns checked
@@ -102,13 +106,14 @@ and the exit code is non-zero unless every phase passed):
            logged shape, its signed-digit counts and scatter and affine
            bucket sums at the smallest and largest logged shape of each
            group and window, its window reduce at the most windows of
-           each (the combine against python ints); B2's NTT at every
-           size 2 to 2^24 both ways, its
+           each (the combine against python ints); B2's
            powers at each logged shape; B4 launched on all of a logged
-           count's scalars, its first and last 512 results held); the
-           affine edges (a base at infinity, a repeated base, a base and
-           its negation in one bucket) through the MSM against python
-           ints; one 2^12-row
+           count's scalars, its first and last 512 results held); and, in
+           a second process while phase final built its R1CS
+           (``--edge-holds``, edge_holds): B2's NTT at
+           every size 2 to 2^24 both ways; the affine edges (a base at
+           infinity, a repeated base, a base and its negation in one
+           bucket) through the MSM against python ints; one 2^12-row
            BN254 tree against the host MerkleTreeBN128; the edges: B4 in
            G1 and G2 at scalars 0, 1, r - 1, r, 2^k, r - 2^k, 2^256 - 1, a
            carry into the top window, digits at +-2^(w-1) and walks whose
@@ -133,15 +138,21 @@ and the exit code is non-zero unless every phase passed):
            case: spans, launches, each kernel's device ms (torch.profiler),
            peaks
   fflonk_holds  F1-F3 against their twins, exactly, at every distinct
-           shape phase fflonk launched them at; B3 at full random scalars
-           at every commitment's point count (against [sum s_i tau^i] G in
-           python ints) and, at the largest, against msm_plain; B3's new
-           launches as in final_holds; B2's NTT passes above 2^24, its
-           powers at each logged length and fused poly_eval (against its
-           twin, and the host Horner up to 2^16 coefficients) at each
-           logged shape; B4 (the SRS) launched at every scalar count of the
-           phase, full random scalars, its first and last 512 results
-           against its twin
+           shape phase fflonk launched them at (F2 with zeros at the first
+           and last slot of threads' runs and of blocks, a block of zeros,
+           every element of four blocks held; F3 every point of a block,
+           the ends and 4096 seeded points over the domain, part 1 reading
+           s1..s3 four rows apart), and at the edges of their blocks (F2 at
+           n = 1, 255, 257, three blocks and a part, the values 0, 1, r -
+           1; F3 every part at 8, 1000 and a block and a point); B3 at
+           full random scalars at every commitment's point count (against
+           [sum s_i tau^i] G in python ints) and, at the largest, against
+           msm_plain; B3's new launches as in final_holds; B2's NTT passes
+           above 2^24, its powers at each logged length and fused poly_eval
+           (against its twin, and the host Horner up to 2^16 coefficients)
+           at each logged shape; B4 (the SRS) launched at every scalar
+           count of the phase, full random scalars, its first and last 512
+           results against its twin
 
 Each path (permute, each golden proof, prove, prove_vm, each recursion
 stage, the final hop, the golden final hop, each fflonk case) is driven with every launch
@@ -166,12 +177,15 @@ It imports no JAX.
 
 from __future__ import annotations
 
+import atexit
+import contextlib
 import inspect
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -328,7 +342,48 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int(np.max(np.where(au > bu, au - bu, bu - au)))
 
 
-def main() -> int:
+def edge_holds(dev) -> list:
+    """final_holds' holds at the kernels' edges, which take no shape from
+    the path: one 2^12-row BN254 tree against the host MerkleTreeBN128,
+    B2's NTT at every size 2 to 2^24 both ways, B3's affine edges through
+    the MSM against python ints, B4 at its edge scalars in G1 and G2 at
+    both digit widths (in G1 at FB_WINDOW against python ints too), B1's
+    leaves at every last-chunk width.  Returns [kernel id, result, seconds]
+    a hold.  ``python3 chip_smoke.py --edge-holds`` runs it in a second
+    process while phase final builds its R1CS on the host."""
+    from merlin_zkevm_prover_tpu_torch.ops import bn254_field as bf
+    from merlin_zkevm_prover_tpu_torch.snark import curve as bn_curve
+    from merlin_zkevm_prover_tpu_torch.tools import bn254_times as bnt
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2028)
+    out, clock = [], [time.time()]
+
+    def keep(kernel, res):
+        out.append([kernel, res, round(time.time() - clock[0], 2)])
+        clock[0] = time.time()
+
+    keep("B1", bnt.hold_tree_host(bnt.gl_rows(1 << 12, 24, gen, dev)))
+    for log_n in range(1, 25):
+        a = bf.to_mont(bf.FR, bnt.field_elems(bf.FR, 1 << log_n, gen, dev))
+        for inverse in (False, True):
+            keep("B2", bnt.hold_ntt(a, inverse))
+        del a
+    torch.cuda.empty_cache()
+    for F_ in (bn_curve.F1, bn_curve.F2):
+        keep("B3", bnt.hold_affine_edges(F_, dev))
+    for F_ in (bn_curve.F1, bn_curve.F2):
+        for w_ in (bn_curve.FB_WINDOW, bn_curve.FB_WINDOW_SMALL):
+            keep("B4", bnt.hold_fixed_base_edges(
+                F_, w_, dev, ints=F_ is bn_curve.F1 and
+                w_ == bn_curve.FB_WINDOW))
+    for res in bnt.hold_leaves([(130, w_) for w_ in bnt.leaf_edge_widths()],
+                               gen, dev):
+        keep("B1", {**res, "edge": True})
+    return out
+
+
+def main(kernel_holds_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -397,9 +452,11 @@ def main() -> int:
 
     def edge_rows(x: torch.Tensor) -> torch.Tensor:
         """Plant the edge words across row j of an (H, W) matrix, rotated
-        by j, for the first rows."""
+        by j, for the first rows (repeated along the row on the card)."""
+        reps = -(-x.shape[1] // len(lane_vals))
         for j in range(min(len(lane_vals), x.shape[0])):
-            x[j] = gl.from_u64(np.resize(np.roll(lane_vals, j), x.shape[1]), dev)
+            x[j] = gl.from_u64(np.roll(lane_vals, j), dev).repeat(reps)[
+                :x.shape[1]]
         return x
 
     # the BN254 kernels' counters, by kernel (B1-B4), and their shape
@@ -558,50 +615,21 @@ def main() -> int:
     worst = {"permute": 0, "linear_hash": 0, "node_hash": 0, "ntt_short": 0,
              "ntt_block": 0, "ntt_block_short": 0, "vm_run": 0}
 
+    check_clock = [time.time()]
+
     def hold(kernel: str, what: str, got, want, **extra) -> None:
         err = max_abs_err(got, want)
         worst[kernel] = max(worst[kernel], err)
-        checks.append({"kernel": kernel, "case": what, "max_abs_err": err, **extra})
+        # the seconds since the hold before: this hold's own, data included
+        checks.append({"kernel": kernel, "case": what, "max_abs_err": err,
+                       **extra, "s": round(time.time() - check_clock[0], 2)})
+        check_clock[0] = time.time()
         if err != 0:
             raise AssertionError(f"{kernel} {what}: kernel != plain version "
                                  f"(max abs err {err})")
 
-    # K1: 1 and 127 leave a block partly idle, 128 fills one exactly
     B_PERM = (1 << 23) // 31        # PoseidonG capacity at 2^23 rows: 270,600
-    for b in (1, 127, 128, B_PERM):
-        st = edge_lanes(rnd(12, b))
-        hold("permute", f"(12, {b})", pc.permute(st), pc.permute_plain(st))
-    hold("permute", "(12,)", pc.permute(st[:, 5].clone()),
-         pc.permute_plain(st[:, 5].clone()))
-
-    # K2: the edge words, two of them in [p, 2^64), in every column of the
-    # first rows, so that every chunk and the capacity carried between
-    # chunks see them
     H = 1 << 18
-    for w in (5, 8, 9, 21, 64):
-        x = edge_rows(rnd(H, w))
-        hold("linear_hash", f"({H}, {w})", pc.linear_hash(x),
-             pc.linear_hash_plain(x))
-    x665 = edge_rows(rnd(H, 665))
-    lh665 = pc.linear_hash(x665)
-    hold("linear_hash", f"({H}, 665), plain on the first 4096 rows",
-         lh665[:4096], pc.linear_hash_plain(x665[:4096]))
-    ms_lh665 = time_ms(lambda: pc.linear_hash(x665), 5)
-    del lh665
-    # K3: every boundary of the dispatch, through the wrapper and through
-    # each one-level kernel, edge words in every lane of both operands
-    bounds = sorted({1, 2, 3, 1 << 17} | {
-        t + d for t in (pc.TOP_MAX_PAIRS, pc.GROUP_MAX_PAIRS) for d in (-1, 0, 1)})
-    for n in bounds:
-        l = edge_lanes(rnd(4, n)).T.contiguous()
-        r = edge_lanes(rnd(4, n)).flip(1).T.contiguous()
-        want = pc.node_hash_plain(l, r)
-        hold("node_hash", f"n = {n} ({pc._node_kernel(n)})", pc.node_hash(l, r), want)
-        for kind in ("pair", "group"):
-            out = torch.empty_like(want)
-            pc._launch_node_hash(kind, l.data_ptr(), r.data_ptr(), 4,
-                                 out.data_ptr(), n, dev)
-            hold("node_hash", f"n = {n}, {kind} kernel", out, want)
 
     def plain_levels_(forest: list) -> list:
         """The levels of every (2h-1, 4) node array in `forest` by the plain
@@ -619,21 +647,6 @@ def main() -> int:
                 ns[i] //= 2
         return forest
 
-    forest = []
-    for k in range(1, 19):
-        h = 1 << k
-        nodes = torch.zeros((2 * h - 1, 4), dtype=torch.int64, device=dev)
-        nodes[:h] = edge_lanes(rnd(4, h)).T
-        forest.append(nodes)
-    got = [pc.merkle_levels_(t.clone(), (t.shape[0] + 1) // 2) for t in forest]
-    for k, g, want in zip(range(1, 19), got, plain_levels_(forest)):
-        hold("node_hash", f"merkle levels, h = 2^{k}, edge words in every lane "
-             f"({len(pc._level_plan(1 << k))} launches)", g, want)
-    del forest, got
-    src = rnd(1 << 10, 9)
-    hold("node_hash", "merkelize (1024, 9)", pc.merkelize(src),
-         pc.merkelize(src.cpu()).to(dev))
-
     def tw(log_l, inverse):
         return ntt_cuda._dev(dev, ntt_cuda._stage_tables_np, log_l, inverse)
 
@@ -641,157 +654,6 @@ def main() -> int:
         return ("ntt_block_short" if log_l <= ntt_cuda.SHORT_BLOCK_BITS
                 else "ntt_block")
 
-    # the block transform at every length 2 .. 512 (2, 4 and 8: K6's
-    # register form; 16: one thread per column; 32 .. 512: register passes
-    # over the tile), each flag combination, the edge words (p and 2^64 - 1
-    # among them) across the first rows and a one-hot column
-    for log_l in range(1, ntt_cuda.MAX_KERNEL_BITS + 1):
-        l, b = 1 << log_l, 1000      # b: not a multiple of any tile width
-        x = edge_rows(rnd(l, b))
-        x[:, 1] = 0
-        x[1 % l, 1] = 1              # one-hot column
-        u, v = rnd(l), rnd(b)
-        for name, kw in (
-                ("dif, inverse", dict(dif=True, inverse=True)),
-                ("dif, zero_top", dict(dif=True, zero_top=True)),
-                ("dif, u v const_scale", dict(dif=True, u=u, v=v,
-                                              const_scale=3, inverse=True)),
-                ("dit, sep_scale", dict(dif=False, u=u, v=v, inverse=True)),
-                ("dit, const_scale", dict(dif=False, const_scale=pow(l, P - 2, P),
-                                          inverse=True)),
-                ("dit, zero_top", dict(dif=False, zero_top=True)),
-                ("dit, canon", dict(dif=False))):
-            kw = dict(kw)
-            t = tw(log_l, kw.pop("inverse", False))
-            xin = x[: l // 2] if kw.get("zero_top") else x
-            hold(ntt_kind(log_l), f"L = {l}, {name}",
-                 ntt_cuda.ntt_block(xin, t, log_l, **kw),
-                 ntt_cuda.ntt_block_plain(xin, t, log_l, **kw))
-        xs = x[:, 3:997]             # a column slice, read in place
-        hold(ntt_kind(log_l), f"L = {l}, dif, column slice",
-             ntt_cuda.ntt_block(xs, tw(log_l, False), log_l, True),
-             ntt_cuda.ntt_block_plain(xs, tw(log_l, False), log_l, True))
-    for log_l, b in ((2, (1 << 16) * 3), (5, 1000)):
-        x = edge_rows(rnd(1 << log_l, b))
-        hold("ntt_short", f"L = {1 << log_l}, B = {b}",
-             ntt_cuda.ntt_short(x, tw(log_l, True), log_l),
-             ntt_cuda.ntt_short_plain(x, tw(log_l, True), log_l))
-
-    # the pipeline's kernels at every size it serves, at the widths the
-    # proof gives them (1 and 3: the GL3 transforms; 25: the commit's last
-    # block; 64: a full block): kernel A reading a column slice in place
-    # (with and without zero_top), kernel B reading kernel A's output
-    # through the mid gather, with the INTT's u[k2] v[k1] scale, and
-    # writing into a column slice with a constant scale
-    for nb in range(ntt_cuda.PIPELINE_MIN_BITS, ntt_cuda.PIPELINE_MAX_BITS + 1):
-        n1_bits, n2_bits = ntt_cuda._split(nb)
-        key = (nb, n1_bits, SHIFT, True)
-        su = ntt_cuda._dev(dev, ntt_cuda._sep_scale_np, *key, pick=0)
-        sv = ntt_cuda._dev(dev, ntt_cuda._sep_scale_np, *key, pick=1)
-        for c in (1, 3, 25, 64):
-            wide = edge_rows(rnd(1 << nb, c + 7))
-            xa = wide[:, 3:3 + c]
-            for zt in (False, True):
-                xin = xa[: (1 << nb) // 2] if zt else xa
-                hold(ntt_kind(n1_bits), f"kernel A n_bits = {nb}, c = {c}, "
-                     f"column slice{', zero_top' if zt else ''}",
-                     ntt_cuda.ntt_block_cols(xin, n1_bits, n2_bits, not zt, zt),
-                     ntt_cuda.ntt_block_cols_plain(xin, n1_bits, n2_bits,
-                                                   not zt, zt))
-            y = edge_rows(rnd(1 << n1_bits, c << n2_bits))
-            y[:, 1] = 0
-            y[0, 1] = 1              # one-hot column of kernel A's output
-            hold("ntt_block", f"gather B n_bits = {nb}, c = {c}, inverse, u v",
-                 ntt_cuda.ntt_block_gather(y, n1_bits, n2_bits, c, True,
-                                           u=su, v=sv),
-                 ntt_cuda.ntt_block_gather_plain(y, n1_bits, n2_bits, c, True,
-                                                 u=su, v=sv))
-            wide.zero_()
-            got = ntt_cuda.ntt_block_gather(y, n1_bits, n2_bits, c, False,
-                                            const_scale=12345,
-                                            out=wide[:, 3:3 + c])
-            hold("ntt_block", f"gather B n_bits = {nb}, c = {c}, into a "
-                 "column slice", got, ntt_cuda.ntt_block_gather_plain(
-                     y, n1_bits, n2_bits, c, False, const_scale=12345))
-            if bool(wide[:, :3].any()) or bool(wide[:, 3 + c:].any()):
-                raise AssertionError(f"gather B n_bits = {nb}, c = {c} wrote "
-                                     "outside its column slice")
-    del wide, xa, y, got
-    for nb, w in ((10, 67), (12, 130), (14, 131)):
-        x = edge_rows(rnd(1 << nb, w))
-        hold(ntt_kind(ntt_cuda._split(nb + 1)[0]),
-             f"extend_pol_blocked ({1 << nb}, {w}) -> 2^{nb + 1}",
-             ntt.extend_pol_blocked(x, nb, nb + 1),
-             ntt.extend_pol_plain(x, nb, nb + 1))
-
-    def lagrange0(n, xx):
-        return (pow(xx, n, P) - 1) * pow(n * (xx - 1) % P, P - 2, P) % P
-
-    for nb in (6, 11, 13, 15, 17):
-        n = 1 << nb
-        x = rnd(n, 8)
-        x[:, 0] = 0
-        x[0, 0] = 1                  # one-hot: INTT is 1/N everywhere
-        x[:, 1] = 0
-        x[0, 1] = 7                  # impulse: NTT is 7 everywhere
-        kernel = ("ntt_short" if not ntt_cuda.pipeline_ok(nb)
-                  else "ntt_block_short" if nb < 13 else "ntt_block")
-        f, i_, e = ntt.ntt(x), ntt.intt(x), ntt.extend_pol(x, nb, nb + 1)
-        hold(kernel, f"ntt n_bits = {nb}", f, ntt.ntt_plain(x))
-        hold(kernel, f"intt n_bits = {nb}", i_, ntt.intt_plain(x))
-        hold(kernel, f"extend_pol n_bits = {nb}", e,
-             ntt.extend_pol_plain(x, nb, nb + 1))
-        if not bool((i_[:, 0] == gl.const(pow(n, P - 2, P), device=dev)).all()):
-            raise AssertionError(f"one-hot INTT probe failed at n_bits {nb}")
-        if not bool((f[:, 1] == 7).all()):
-            raise AssertionError(f"impulse NTT probe failed at n_bits {nb}")
-        col = gl.to_u64(e[:, 0])
-        for j in (0, 1, 3, 191, 192, 193, 2 * n - 1):
-            j %= 2 * n
-            if int(col[j]) != lagrange0(n, SHIFT * pow(gl.w(nb + 1), j, P) % P):
-                raise AssertionError(f"Lagrange probe failed, n_bits {nb} row {j}")
-    # above the pipeline's sizes: the four-step recursion over ntt_short
-    # (2^19 = 1024 x 512, the 1024 again 2 x 512), one column
-    x = rnd(1 << 19, 1)
-    hold("ntt_short", "ntt n_bits = 19", ntt.ntt(x), ntt.ntt_plain(x))
-    hold("ntt_short", "intt n_bits = 19", ntt.intt(x), ntt.intt_plain(x))
-    x = rnd(1 << 18, 1)
-    hold("ntt_short", "extend_pol n_bits = 18 -> 19", ntt.extend_pol(x, 18, 19),
-         ntt.extend_pol_plain(x, 18, 19))
-    # the recursion stages' LDEs (2^19 .. 2^21 rows) on the same route, on a
-    # block of EXTEND_BLOCK_COLS columns as extend_pol_blocked feeds it, the
-    # edge words across the first rows, and the probes in columns 0 and 1
-    for nb in (19, 20, 21):
-        n = 1 << nb
-        x = edge_rows(rnd(n, ntt.EXTEND_BLOCK_COLS))
-        x[:, 0] = 0
-        x[0, 0] = 1                  # one-hot
-        x[:, 1] = 0
-        x[0, 1] = 7                  # impulse
-        if nb >= 20:
-            f, i_ = ntt.ntt(x), ntt.intt(x)
-            hold("ntt_short", f"ntt n_bits = {nb}, {x.shape[1]} columns", f,
-                 ntt.ntt_plain(x))
-            hold("ntt_short", f"intt n_bits = {nb}, {x.shape[1]} columns", i_,
-                 ntt.intt_plain(x))
-            if not bool((i_[:, 0] == gl.const(pow(n, P - 2, P), device=dev)).all()):
-                raise AssertionError(f"one-hot INTT probe failed at n_bits {nb}")
-            if not bool((f[:, 1] == 7).all()):
-                raise AssertionError(f"impulse NTT probe failed at n_bits {nb}")
-        if nb < 21:
-            e = ntt.extend_pol_blocked(x, nb, nb + 1)
-            hold("ntt_short", f"extend_pol_blocked n_bits = {nb} -> {nb + 1}, "
-                 f"{x.shape[1]} columns", e, ntt.extend_pol_plain(x, nb, nb + 1))
-            col = gl.to_u64(e[:, 0])
-            for j in (0, 1, 3, 191, 192, 193, 2 * n - 1):
-                if int(col[j]) != lagrange0(n, SHIFT * pow(gl.w(nb + 1), j, P) % P):
-                    raise AssertionError(f"Lagrange probe failed, n_bits {nb} "
-                                         f"row {j}")
-    # the VM interpreter: the smoke circuit's three step programs at the
-    # n_bits = 17 proof's domains (2^17 rows for steps 2 and 3, 2^18 for step
-    # 4, whose loads rotate by 2^blowup_bits rows and wrap at the end), the
-    # sections column slices of wider matrices with the edge words, p and
-    # 2^64 - 1 among them, across their first rows
     air17, trace17 = build_smoke_air(n_bits=17, seed=42)
     info17 = compile_air(air17, n_queries=32)
     vm_progs = vm_programs(vm, info17)
@@ -819,18 +681,6 @@ def main() -> int:
                                    None, None),
                 list(prog.out_regs.values()), prog.n_regs, n, kw["roll_k"])
 
-    for step in sorted(vm_progs):
-        prog, n, secs, kw = vm_case(step)
-        got = vm.run_program(prog, info17, secs, n, **kw)
-        want = vm.run_program_plain(prog, info17, secs, n, **kw)
-        for dest in prog.out_regs:
-            hold("vm_run", f"step {step} program ({len(prog.code)} "
-                 f"instructions, {prog.n_regs} registers, n = {n}), dest "
-                 f"{dest}", torch.stack(got[dest]), torch.stack(want[dest]))
-    del got, want, secs, kw
-    # a seeded random program of the length the default threshold sends to
-    # the VM (the step-4 program of tests/test_torch_stark_large.py's wide
-    # circuit has 6,350 instructions over 31 registers), at 2^18 rows
     rand_code = vmt.random_program(np.random.default_rng(2027), 6000, 32,
                                    (7, 2, 27, 6), 64)
 
@@ -841,32 +691,6 @@ def main() -> int:
         return (rand_code, rnd(64, 3), secs, [(0, GL3(rnd(n), rnd(n), rnd(n)))],
                 list(range(32)), 32, n, 4)
 
-    rand_args = random_case()
-    for j, (g, w_) in enumerate(zip(vm_cuda.vm_run(*rand_args),
-                                    vm_cuda.vm_run_plain(*rand_args))):
-        hold("vm_run", f"random program (6000 instructions, 32 registers, "
-             f"n = {1 << 18}), register {j}", g, w_)
-    del g, w_, rand_args
-    # destinations that alias operands (the compiler never emits them)
-    n = 1 << 17
-    alias_sec = edge_rows(rnd(n, 6))[:, 1:]
-    alias_code = np.array([
-        (vm.LOAD, 0, (1 << 2) | 3, 0), (vm.LOADR, 0, (3 << 2) | 1, 1),
-        (vm.ADD, 0, 1, 0), (vm.MUL, 1, 0, 0), (vm.SUB, 0, 2, 2),
-        (vm.MULC, 2, 1, 2), (vm.ADDC, 2, 0, 3), (vm.SUBC, 3, 2, 3),
-        (vm.CSUBC, 3, 1, 3), (vm.NEG, 3, 0, 3), (vm.LOADC, 2, 0, 1),
-        (vm.MUL, 3, 3, 3), (vm.ADD, 3, 1, 1)], dtype=np.int32)
-    alias = (alias_code, rnd(3, 3), [alias_sec],
-             [(2, GL3(rnd(n), rnd(n), rnd(n)))], [0, 1, 2, 3], 4, n, 3)
-    for j, (g, w_) in enumerate(zip(vm_cuda.vm_run(*alias),
-                                    vm_cuda.vm_run_plain(*alias))):
-        hold("vm_run", f"aliasing program, n = {n}, register {j}", g, w_)
-    # the wide circuit's step-4 program (its code depends on n_bits: the
-    # proof's, 17) at 2^18 rows, 190 columns of cm1_2ns read as a column
-    # slice with the edge words across the first rows; a program with more
-    # registers than a block's shared memory holds (the spilled registers
-    # run on the card, through FILL and SPILL); n not a multiple of the
-    # block's rows, LOADR wrapping across the last block
     def vm_more_cases():
         """The wide program (with its compiled program), the spill program
         and the ragged one: vm_run's arguments, seeded."""
@@ -876,28 +700,277 @@ def main() -> int:
         ragged = vmt.random_case(data, 1000, 24, (1 << 16) + 5, 37, 2029)
         return wide, spill, ragged
 
-    (wide_args, wide_prog), spill_args, ragged_args = vm_more_cases()
-    vm_plans = {}
-    for what, args_ in (("wide program", wide_args),
-                        ("spill program", spill_args),
-                        ("ragged program", ragged_args)):
-        vm_plans[what] = vm_cuda._vm_fields(*args_)["plan"]
-        for j, (g, w_) in enumerate(zip(vm_cuda.vm_run(*args_),
-                                        vm_cuda.vm_run_plain(*args_))):
-            hold("vm_run", f"{what} ({len(args_[0])} instructions, "
-                 f"{args_[5]} registers, n = {args_[6]}), output {j}", g, w_)
-    if vm_plans["spill program"]["slots_on"] >= vm_plans["spill program"]["words"]:
-        raise AssertionError("the spill program's registers all fit on chip")
-    if args_[6] % vm_plans["ragged program"]["rows"] == 0:
-        raise AssertionError("the ragged program's n is a multiple of a "
-                             "block's rows")
-    del wide_args, spill_args, ragged_args, args_
-    emit({"phase": "kernels_check", "mismatches": 0, "cases": checks,
-          "vm_plans": vm_plans,
-          "linear_hash_2^18x665_ms": ms_lh665,
-          "linear_hash_2^18x665_bound_ms": call_bound_ms(
-              "linear_hash", {"rows": x665})[0]})
-    del x665, x, f, i_, e, st, g, w_, alias, alias_sec
+    def kernel_holds() -> dict:
+        """K1-K6 and vm_run against their plain versions, exactly, at the
+        edge shapes of phase kernels (this file's docstring); returns the
+        VM plans of the wide, spill and ragged programs.
+        ``python3 chip_smoke.py --kernel-holds`` runs it in a second
+        process while phase final builds its R1CS on the host."""
+        # K1: 1 and 127 leave a block partly idle, 128 fills one exactly
+        for b in (1, 127, 128, B_PERM):
+            st = edge_lanes(rnd(12, b))
+            hold("permute", f"(12, {b})", pc.permute(st), pc.permute_plain(st))
+        hold("permute", "(12,)", pc.permute(st[:, 5].clone()),
+             pc.permute_plain(st[:, 5].clone()))
+
+        # K2: the edge words, two of them in [p, 2^64), in every column of the
+        # first rows, so that every chunk and the capacity carried between
+        # chunks see them
+        for w in (5, 8, 9, 21, 64):
+            x = edge_rows(rnd(H, w))
+            hold("linear_hash", f"({H}, {w})", pc.linear_hash(x),
+                 pc.linear_hash_plain(x))
+        x665 = edge_rows(rnd(H, 665))
+        lh665 = pc.linear_hash(x665)
+        hold("linear_hash", f"({H}, 665), plain on the first 4096 rows",
+             lh665[:4096], pc.linear_hash_plain(x665[:4096]))
+        del lh665
+        # K3: every boundary of the dispatch, through the wrapper and through
+        # each one-level kernel, edge words in every lane of both operands
+        bounds = sorted({1, 2, 3, 1 << 17} | {
+            t + d for t in (pc.TOP_MAX_PAIRS, pc.GROUP_MAX_PAIRS) for d in (-1, 0, 1)})
+        for n in bounds:
+            l = edge_lanes(rnd(4, n)).T.contiguous()
+            r = edge_lanes(rnd(4, n)).flip(1).T.contiguous()
+            want = pc.node_hash_plain(l, r)
+            hold("node_hash", f"n = {n} ({pc._node_kernel(n)})", pc.node_hash(l, r), want)
+            for kind in ("pair", "group"):
+                out = torch.empty_like(want)
+                pc._launch_node_hash(kind, l.data_ptr(), r.data_ptr(), 4,
+                                     out.data_ptr(), n, dev)
+                hold("node_hash", f"n = {n}, {kind} kernel", out, want)
+
+        forest = []
+        for k in range(1, 19):
+            h = 1 << k
+            nodes = torch.zeros((2 * h - 1, 4), dtype=torch.int64, device=dev)
+            nodes[:h] = edge_lanes(rnd(4, h)).T
+            forest.append(nodes)
+        got = [pc.merkle_levels_(t.clone(), (t.shape[0] + 1) // 2) for t in forest]
+        for k, g, want in zip(range(1, 19), got, plain_levels_(forest)):
+            hold("node_hash", f"merkle levels, h = 2^{k}, edge words in every lane "
+                 f"({len(pc._level_plan(1 << k))} launches)", g, want)
+        del forest, got
+        src = rnd(1 << 10, 9)
+        hold("node_hash", "merkelize (1024, 9)", pc.merkelize(src),
+             pc.merkelize(src.cpu()).to(dev))
+
+        # the block transform at every length 2 .. 512 (2, 4 and 8: K6's
+        # register form; 16: one thread per column; 32 .. 512: register passes
+        # over the tile), each flag combination, the edge words (p and 2^64 - 1
+        # among them) across the first rows and a one-hot column
+        for log_l in range(1, ntt_cuda.MAX_KERNEL_BITS + 1):
+            l, b = 1 << log_l, 1000      # b: not a multiple of any tile width
+            x = edge_rows(rnd(l, b))
+            x[:, 1] = 0
+            x[1 % l, 1] = 1              # one-hot column
+            u, v = rnd(l), rnd(b)
+            for name, kw in (
+                    ("dif, inverse", dict(dif=True, inverse=True)),
+                    ("dif, zero_top", dict(dif=True, zero_top=True)),
+                    ("dif, u v const_scale", dict(dif=True, u=u, v=v,
+                                                  const_scale=3, inverse=True)),
+                    ("dit, sep_scale", dict(dif=False, u=u, v=v, inverse=True)),
+                    ("dit, const_scale", dict(dif=False, const_scale=pow(l, P - 2, P),
+                                              inverse=True)),
+                    ("dit, zero_top", dict(dif=False, zero_top=True)),
+                    ("dit, canon", dict(dif=False))):
+                kw = dict(kw)
+                t = tw(log_l, kw.pop("inverse", False))
+                xin = x[: l // 2] if kw.get("zero_top") else x
+                hold(ntt_kind(log_l), f"L = {l}, {name}",
+                     ntt_cuda.ntt_block(xin, t, log_l, **kw),
+                     ntt_cuda.ntt_block_plain(xin, t, log_l, **kw))
+            xs = x[:, 3:997]             # a column slice, read in place
+            hold(ntt_kind(log_l), f"L = {l}, dif, column slice",
+                 ntt_cuda.ntt_block(xs, tw(log_l, False), log_l, True),
+                 ntt_cuda.ntt_block_plain(xs, tw(log_l, False), log_l, True))
+        for log_l, b in ((2, (1 << 16) * 3), (5, 1000)):
+            x = edge_rows(rnd(1 << log_l, b))
+            hold("ntt_short", f"L = {1 << log_l}, B = {b}",
+                 ntt_cuda.ntt_short(x, tw(log_l, True), log_l),
+                 ntt_cuda.ntt_short_plain(x, tw(log_l, True), log_l))
+
+        # the pipeline's kernels at every size it serves, at the widths the
+        # proof gives them (1 and 3: the GL3 transforms; 25: the commit's last
+        # block; 64: a full block): kernel A reading a column slice in place
+        # (with and without zero_top), kernel B reading kernel A's output
+        # through the mid gather, with the INTT's u[k2] v[k1] scale, and
+        # writing into a column slice with a constant scale
+        for nb in range(ntt_cuda.PIPELINE_MIN_BITS, ntt_cuda.PIPELINE_MAX_BITS + 1):
+            n1_bits, n2_bits = ntt_cuda._split(nb)
+            key = (nb, n1_bits, SHIFT, True)
+            su = ntt_cuda._dev(dev, ntt_cuda._sep_scale_np, *key, pick=0)
+            sv = ntt_cuda._dev(dev, ntt_cuda._sep_scale_np, *key, pick=1)
+            for c in (1, 3, 25, 64):
+                wide = edge_rows(rnd(1 << nb, c + 7))
+                xa = wide[:, 3:3 + c]
+                for zt in (False, True):
+                    xin = xa[: (1 << nb) // 2] if zt else xa
+                    hold(ntt_kind(n1_bits), f"kernel A n_bits = {nb}, c = {c}, "
+                         f"column slice{', zero_top' if zt else ''}",
+                         ntt_cuda.ntt_block_cols(xin, n1_bits, n2_bits, not zt, zt),
+                         ntt_cuda.ntt_block_cols_plain(xin, n1_bits, n2_bits,
+                                                       not zt, zt))
+                y = edge_rows(rnd(1 << n1_bits, c << n2_bits))
+                y[:, 1] = 0
+                y[0, 1] = 1              # one-hot column of kernel A's output
+                hold("ntt_block", f"gather B n_bits = {nb}, c = {c}, inverse, u v",
+                     ntt_cuda.ntt_block_gather(y, n1_bits, n2_bits, c, True,
+                                               u=su, v=sv),
+                     ntt_cuda.ntt_block_gather_plain(y, n1_bits, n2_bits, c, True,
+                                                     u=su, v=sv))
+                wide.zero_()
+                got = ntt_cuda.ntt_block_gather(y, n1_bits, n2_bits, c, False,
+                                                const_scale=12345,
+                                                out=wide[:, 3:3 + c])
+                hold("ntt_block", f"gather B n_bits = {nb}, c = {c}, into a "
+                     "column slice", got, ntt_cuda.ntt_block_gather_plain(
+                         y, n1_bits, n2_bits, c, False, const_scale=12345))
+                if bool(wide[:, :3].any()) or bool(wide[:, 3 + c:].any()):
+                    raise AssertionError(f"gather B n_bits = {nb}, c = {c} wrote "
+                                         "outside its column slice")
+        del wide, xa, y, got
+        for nb, w in ((10, 67), (12, 130), (14, 131)):
+            x = edge_rows(rnd(1 << nb, w))
+            hold(ntt_kind(ntt_cuda._split(nb + 1)[0]),
+                 f"extend_pol_blocked ({1 << nb}, {w}) -> 2^{nb + 1}",
+                 ntt.extend_pol_blocked(x, nb, nb + 1),
+                 ntt.extend_pol_plain(x, nb, nb + 1))
+
+        def lagrange0(n, xx):
+            return (pow(xx, n, P) - 1) * pow(n * (xx - 1) % P, P - 2, P) % P
+
+        for nb in (6, 11, 13, 15, 17):
+            n = 1 << nb
+            x = rnd(n, 8)
+            x[:, 0] = 0
+            x[0, 0] = 1                  # one-hot: INTT is 1/N everywhere
+            x[:, 1] = 0
+            x[0, 1] = 7                  # impulse: NTT is 7 everywhere
+            kernel = ("ntt_short" if not ntt_cuda.pipeline_ok(nb)
+                      else "ntt_block_short" if nb < 13 else "ntt_block")
+            f, i_, e = ntt.ntt(x), ntt.intt(x), ntt.extend_pol(x, nb, nb + 1)
+            hold(kernel, f"ntt n_bits = {nb}", f, ntt.ntt_plain(x))
+            hold(kernel, f"intt n_bits = {nb}", i_, ntt.intt_plain(x))
+            hold(kernel, f"extend_pol n_bits = {nb}", e,
+                 ntt.extend_pol_plain(x, nb, nb + 1))
+            if not bool((i_[:, 0] == gl.const(pow(n, P - 2, P), device=dev)).all()):
+                raise AssertionError(f"one-hot INTT probe failed at n_bits {nb}")
+            if not bool((f[:, 1] == 7).all()):
+                raise AssertionError(f"impulse NTT probe failed at n_bits {nb}")
+            col = gl.to_u64(e[:, 0])
+            for j in (0, 1, 3, 191, 192, 193, 2 * n - 1):
+                j %= 2 * n
+                if int(col[j]) != lagrange0(n, SHIFT * pow(gl.w(nb + 1), j, P) % P):
+                    raise AssertionError(f"Lagrange probe failed, n_bits {nb} row {j}")
+        # above the pipeline's sizes: the four-step recursion over ntt_short
+        # (2^19 = 1024 x 512, the 1024 again 2 x 512), one column
+        x = rnd(1 << 19, 1)
+        hold("ntt_short", "ntt n_bits = 19", ntt.ntt(x), ntt.ntt_plain(x))
+        hold("ntt_short", "intt n_bits = 19", ntt.intt(x), ntt.intt_plain(x))
+        x = rnd(1 << 18, 1)
+        hold("ntt_short", "extend_pol n_bits = 18 -> 19", ntt.extend_pol(x, 18, 19),
+             ntt.extend_pol_plain(x, 18, 19))
+        # the recursion stages' LDEs (2^19 .. 2^21 rows) on the same route, on a
+        # block of EXTEND_BLOCK_COLS columns as extend_pol_blocked feeds it, the
+        # edge words across the first rows, and the probes in columns 0 and 1
+        for nb in (19, 20, 21):
+            n = 1 << nb
+            x = edge_rows(rnd(n, ntt.EXTEND_BLOCK_COLS))
+            x[:, 0] = 0
+            x[0, 0] = 1                  # one-hot
+            x[:, 1] = 0
+            x[0, 1] = 7                  # impulse
+            if nb >= 20:
+                f, i_ = ntt.ntt(x), ntt.intt(x)
+                hold("ntt_short", f"ntt n_bits = {nb}, {x.shape[1]} columns", f,
+                     ntt.ntt_plain(x))
+                hold("ntt_short", f"intt n_bits = {nb}, {x.shape[1]} columns", i_,
+                     ntt.intt_plain(x))
+                if not bool((i_[:, 0] == gl.const(pow(n, P - 2, P), device=dev)).all()):
+                    raise AssertionError(f"one-hot INTT probe failed at n_bits {nb}")
+                if not bool((f[:, 1] == 7).all()):
+                    raise AssertionError(f"impulse NTT probe failed at n_bits {nb}")
+            if nb < 21:
+                e = ntt.extend_pol_blocked(x, nb, nb + 1)
+                hold("ntt_short", f"extend_pol_blocked n_bits = {nb} -> {nb + 1}, "
+                     f"{x.shape[1]} columns", e, ntt.extend_pol_plain(x, nb, nb + 1))
+                col = gl.to_u64(e[:, 0])
+                for j in (0, 1, 3, 191, 192, 193, 2 * n - 1):
+                    if int(col[j]) != lagrange0(n, SHIFT * pow(gl.w(nb + 1), j, P) % P):
+                        raise AssertionError(f"Lagrange probe failed, n_bits {nb} "
+                                             f"row {j}")
+        # the VM interpreter: the smoke circuit's three step programs at the
+        # n_bits = 17 proof's domains (2^17 rows for steps 2 and 3, 2^18 for step
+        # 4, whose loads rotate by 2^blowup_bits rows and wrap at the end), the
+        # sections column slices of wider matrices with the edge words, p and
+        # 2^64 - 1 among them, across their first rows
+        for step in sorted(vm_progs):
+            prog, n, secs, kw = vm_case(step)
+            got = vm.run_program(prog, info17, secs, n, **kw)
+            want = vm.run_program_plain(prog, info17, secs, n, **kw)
+            for dest in prog.out_regs:
+                hold("vm_run", f"step {step} program ({len(prog.code)} "
+                     f"instructions, {prog.n_regs} registers, n = {n}), dest "
+                     f"{dest}", torch.stack(got[dest]), torch.stack(want[dest]))
+        del got, want, secs, kw
+        # a seeded random program of the length the default threshold sends to
+        # the VM (the step-4 program of tests/test_torch_stark_large.py's wide
+        # circuit has 6,350 instructions over 31 registers), at 2^18 rows
+        rand_args = random_case()
+        for j, (g, w_) in enumerate(zip(vm_cuda.vm_run(*rand_args),
+                                        vm_cuda.vm_run_plain(*rand_args))):
+            hold("vm_run", f"random program (6000 instructions, 32 registers, "
+                 f"n = {1 << 18}), register {j}", g, w_)
+        del g, w_, rand_args
+        # destinations that alias operands (the compiler never emits them)
+        n = 1 << 17
+        alias_sec = edge_rows(rnd(n, 6))[:, 1:]
+        alias_code = np.array([
+            (vm.LOAD, 0, (1 << 2) | 3, 0), (vm.LOADR, 0, (3 << 2) | 1, 1),
+            (vm.ADD, 0, 1, 0), (vm.MUL, 1, 0, 0), (vm.SUB, 0, 2, 2),
+            (vm.MULC, 2, 1, 2), (vm.ADDC, 2, 0, 3), (vm.SUBC, 3, 2, 3),
+            (vm.CSUBC, 3, 1, 3), (vm.NEG, 3, 0, 3), (vm.LOADC, 2, 0, 1),
+            (vm.MUL, 3, 3, 3), (vm.ADD, 3, 1, 1)], dtype=np.int32)
+        alias = (alias_code, rnd(3, 3), [alias_sec],
+                 [(2, GL3(rnd(n), rnd(n), rnd(n)))], [0, 1, 2, 3], 4, n, 3)
+        for j, (g, w_) in enumerate(zip(vm_cuda.vm_run(*alias),
+                                        vm_cuda.vm_run_plain(*alias))):
+            hold("vm_run", f"aliasing program, n = {n}, register {j}", g, w_)
+        # the wide circuit's step-4 program (its code depends on n_bits: the
+        # proof's, 17) at 2^18 rows, 190 columns of cm1_2ns read as a column
+        # slice with the edge words across the first rows; a program with more
+        # registers than a block's shared memory holds (the spilled registers
+        # run on the card, through FILL and SPILL); n not a multiple of the
+        # block's rows, LOADR wrapping across the last block
+        (wide_args, wide_prog), spill_args, ragged_args = vm_more_cases()
+        vm_plans = {}
+        for what, args_ in (("wide program", wide_args),
+                            ("spill program", spill_args),
+                            ("ragged program", ragged_args)):
+            vm_plans[what] = vm_cuda._vm_fields(*args_)["plan"]
+            for j, (g, w_) in enumerate(zip(vm_cuda.vm_run(*args_),
+                                            vm_cuda.vm_run_plain(*args_))):
+                hold("vm_run", f"{what} ({len(args_[0])} instructions, "
+                     f"{args_[5]} registers, n = {args_[6]}), output {j}", g, w_)
+        if vm_plans["spill program"]["slots_on"] >= vm_plans["spill program"]["words"]:
+            raise AssertionError("the spill program's registers all fit on chip")
+        if args_[6] % vm_plans["ragged program"]["rows"] == 0:
+            raise AssertionError("the ragged program's n is a multiple of a "
+                                 "block's rows")
+        return vm_plans
+
+    if kernel_holds_only:
+        plans = kernel_holds()
+        print(json.dumps({"cases": checks, "worst": worst, "vm_plans": plans}),
+              flush=True)
+        return 0
+    # K2 at (2^18, 665) timed on the card alone (its hold is kernel_holds')
+    x665 = edge_rows(rnd(H, 665))
+    ms_lh665 = time_ms(lambda: pc.linear_hash(x665), 5)
+    lh665_bound_ms = call_bound_ms("linear_hash", {"rows": x665})[0]
+    del x665
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- permute
@@ -1414,6 +1487,7 @@ def main() -> int:
                     hold(kernel, what, got, plain(**a))
                 del got, a
 
+    check_clock[0] = time.time()
     hold_logged("recursive1", rec1_log)
     hold_logged("recursive2", rec_log)
     torch.cuda.empty_cache()
@@ -1479,28 +1553,70 @@ def main() -> int:
     def bn_device_ms(prof) -> dict:
         """Each BN254 kernel's device ms and launches in a profile, by
         kernel name; fails on a bn_ kernel this table does not name."""
-        out = {}
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            m = re.search(r"\b(bn_\w+_kernel)\b", ev.key)
-            if not m:
-                continue
-            if m.group(1) not in bn_kernel_of:
-                raise AssertionError(f"final: kernel {m.group(1)} is not "
-                                     "one of B1-B4")
-            us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-            d = out.setdefault(m.group(1), {"ms": 0.0, "launches": 0})
-            d["ms"] += us / 1e3
-            d["launches"] += ev.count
+        out = fft_.kernel_device_ms(prof)
+        for k in out:
+            if k not in bn_kernel_of:
+                raise AssertionError(f"final: kernel {k} is not one of B1-B4")
         return out
+
+    # Phase kernels' holds and the edge holds (edge_holds) run in two more
+    # processes of this script while FINAL_R1CS runs: host python, no launch
+    # on the card (and torch.profiler records this process's kernels only).
+    # They are waited for as the span ends, before the setup's first launch,
+    # so that no timed or traced launch shares the card with them.
+    def start_holds(flag):
+        out_, err_ = tempfile.TemporaryFile(), tempfile.TemporaryFile()
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag],
+            cwd=root_dir, stdout=out_, stderr=err_)
+
+        def stop():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+        atexit.register(stop)           # the hop may raise meanwhile
+        return proc, out_, err_, stop
+
+    def last_line(flag, started, timeout):
+        """The JSON of the process's last line; raises unless it exited 0."""
+        proc, out_, err_, stop = started
+        try:
+            rc = proc.wait(timeout=timeout)
+        finally:
+            stop()
+        out_.seek(0)
+        err_.seek(0)
+        if rc != 0:
+            raise AssertionError(f"{flag}: exited with {rc}: " + err_.read(
+                ).decode(errors="replace")[-3000:])
+        return json.loads(out_.read().decode().splitlines()[-1])
+
+    beside = {}     # flag -> that process's last line; "wait_s"
+
+    class FinalLog(TimerLog):
+        """TimerLog whose FINAL_R1CS span runs the two hold processes."""
+
+        @contextlib.contextmanager
+        def span(self, label: str):
+            if label != "FINAL_R1CS":
+                with super().span(label):
+                    yield
+                return
+            started = {f: start_holds(f)
+                       for f in ("--kernel-holds", "--edge-holds")}
+            with super().span(label):
+                yield
+            t0 = time.time()
+            for f, st_ in started.items():
+                beside[f] = last_line(f, st_, 900)
+            beside["wait_s"] = time.time() - t0
 
     def run_final_hop(info_in, root_in, proof_in):
         """recursiveF over one inner proof, then Groth16: returns the line
         of the phase (host spans, launches, peaks), the Groth16 stage and
         the BN254 launches by shape."""
-        tlog = TimerLog("chip_smoke:final", quiet=True, peak_memory=True)
+        tlog = FinalLog("chip_smoke:final", quiet=True, peak_memory=True)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         zero_counters()
@@ -1578,7 +1694,12 @@ def main() -> int:
                 resource.RUSAGE_SELF).ru_maxrss * 1024,
             "stark_launches": stark_launches, "launches": launches_f,
             "verified": True, "tampered_stark_rejected": True,
-            "pairing_ok": True, "tampered_groth16_rejected": True}
+            "pairing_ok": True, "tampered_groth16_rejected": True,
+            # the tampered pairing and the counters' reads after total_s
+            "after_total_s": time.time() - t0 - total,
+            # inside total_s: the wait for the hold processes after
+            # FINAL_R1CS
+            "holds_beside_wait_s": beside["wait_s"]}
         return line, stage, shapes_f
 
     def circ_stats(lay_, air_):
@@ -1590,8 +1711,12 @@ def main() -> int:
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         final_line, final_stage, fin_shapes = run_final_hop(*final_inner)
+        t_hop = time.time()
+    t_exit = time.time()
     by_kernel = bn_device_ms(prof)
     del prof
+    final_line["profiler_s"] = {"exit": t_exit - t_hop,
+                                "read": time.time() - t_exit}
     bn_ids = ("B1", "B2", "B3", "B4")
     final_line["device_ms"] = {
         b: sum(d["ms"] for k, d in by_kernel.items() if bn_kernel_of[k] == b)
@@ -1631,10 +1756,11 @@ def main() -> int:
 
     hold_clock = [time.time()]
 
-    def bn_hold(kernel, res):
+    def bn_hold(kernel, res, s_=None):
         # the seconds since the hold before: this hold's own, data included
         res = {**res, "kernel_id": kernel,
-               "s": round(time.time() - hold_clock[0], 2)}
+               "s": round(time.time() - hold_clock[0], 2) if s_ is None
+               else s_}
         hold_clock[0] = time.time()
         bn_holds.append(res)
         bn_worst[kernel] = max(bn_worst[kernel], res["max_abs_err"])
@@ -1648,16 +1774,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     for res in bnt.hold_nodes(list(fin_shapes["node"]), gen_bn, dev, cap):
         bn_hold("B1", res)
-    bn_hold("B1", bnt.hold_tree_host(bnt.gl_rows(1 << 12, 24, gen_bn, dev)))
-    # every NTT size from 2 to 2^24 both ways (the path's, logged in
-    # fin_shapes["pass"], among them)
-    for log_n in range(1, 25):
-        a = bf.to_mont(bf.FR, bnt.field_elems(bf.FR, 1 << log_n, gen_bn, dev))
-        for inverse in (False, True):
-            bn_hold("B2", {**bnt.hold_ntt(a, inverse), "logged": (
-                1 << log_n, inverse) in fin_shapes["pass"]})
-        del a
-    torch.cuda.empty_cache()
     for (field, n, scalar_b) in sorted(fin_shapes["mont_mul"]):
         ctx = bf.FQ if field == "fq" else bf.FR
         m_ = min(n, 2 * cap)
@@ -1730,8 +1846,6 @@ def main() -> int:
                                  "range passes")
         torch.cuda.empty_cache()
     b3_new_holds(fin_shapes, gen_bn, bn_hold)
-    for F_ in (bn_curve.F1, bn_curve.F2):
-        bn_hold("B3", bnt.hold_affine_edges(F_, dev))
     # B4 launched at each logged scalar count, held on the first and last
     # 512 results: its twin's cost is sequential (254 doublings a result,
     # ~4 s) plus a tree of adds over scalars x 254 bits, launch-bound plain
@@ -1743,21 +1857,28 @@ def main() -> int:
             F_, bnt._one_gen(F_, dev), bnt.field_elems(bf.FR, n, gen_bn, dev),
             cap_pts))
         torch.cuda.empty_cache()
-    # the edges: B4 at scalars 0, 1, r - 1, r, 2^k, r - 2^k, 2^256 - 1, a
-    # carry into the top window, digits at +-2^(w-1) and the walks that meet
-    # +-the point they add (bnt.edge_scalars), in G1 and G2 at both digit
-    # widths, against the twin (and in G1 at FB_WINDOW python ints); B1's
-    # leaves at every last-chunk width t = 2..17 (alone or after a full
-    # chunk) and at widths 1-5, 47-49, 105, 665
-    for F_ in (bn_curve.F1, bn_curve.F2):
-        for w_ in (bn_curve.FB_WINDOW, bn_curve.FB_WINDOW_SMALL):
-            bn_hold("B4", bnt.hold_fixed_base_edges(
-                F_, w_, dev, ints=F_ is bn_curve.F1 and
-                w_ == bn_curve.FB_WINDOW))
-    for res in bnt.hold_leaves([(130, w_) for w_ in bnt.leaf_edge_widths()],
-                               gen_bn, dev):
-        bn_hold("B1", {**res, "edge": True})
-    emit({"phase": "final_holds", "mismatches": 0, "holds": bn_holds})
+    # the edge process's holds (edge_holds): B4 at scalars 0, 1, r - 1, r,
+    # 2^k, r - 2^k, 2^256 - 1, a carry into the top window, digits at
+    # +-2^(w-1) and the walks that meet +-the point they add
+    # (bnt.edge_scalars); B1's leaves at every last-chunk width t = 2..17
+    # (alone or after a full chunk) and at widths 1-5, 47-49, 105, 665;
+    # every NTT size from 2 to 2^24 both ways (the path's, logged in
+    # fin_shapes["pass"], among them)
+    for kid, res, s_ in beside["--edge-holds"]:
+        if res["kernel"] == "B2 ntt":
+            res["logged"] = (res["n"], res["inverse"]) in fin_shapes["pass"]
+        bn_hold(kid, res, s_)
+    kernel_res = beside["--kernel-holds"]
+    for k, err in kernel_res["worst"].items():
+        worst[k] = max(worst[k], err)
+    checks[:0] = kernel_res["cases"]
+    emit({"phase": "kernels_check", "mismatches": 0,
+          "cases": kernel_res["cases"], "vm_plans": kernel_res["vm_plans"],
+          "linear_hash_2^18x665_ms": ms_lh665,
+          "linear_hash_2^18x665_bound_ms": lh665_bound_ms})
+    emit({"phase": "final_holds", "mismatches": 0, "holds": bn_holds,
+          # the wait for both hold processes after FINAL_R1CS ended
+          "beside_wait_s": beside["wait_s"]})
 
     # ---------------------------------------- times at the paths' shapes
     # Each entry: one launch at the largest shape its path gives it, and, for
@@ -1800,6 +1921,7 @@ def main() -> int:
     del perm_state
 
     x = rnd(n_ext, wmax)
+    check_clock[0] = time.time()
     hold("linear_hash", f"main path ({n_ext}, {wmax})", pc.linear_hash(x),
          pc.linear_hash_plain(x))
     entry("linear_hash", "ops/poseidon_tpu.py:326", [n_ext, wmax],
@@ -2311,8 +2433,10 @@ def main() -> int:
                 "profiled_launches": {b: sum(
                     d["launches"] for k, d in by_kernel.items()
                     if kernel_of[k] == b) for b in ids},
-                "bound_ms": {b: bnt.bound_launches(b, shapes_)[0]
-                             for b in ("B2", "B3")},
+                "bound_ms": {**{b: bnt.bound_launches(b, shapes_)[0]
+                                for b in ("B2", "B3")},
+                             **{f: fft_.bound_launches(f, shapes_)[0]
+                                for f in ("F1", "F2", "F3")}},
                 "verified": True, "tampered_rejected": rejected,
                 "launched_shapes": {k: sorted(
                     [[list(s_) if isinstance(s_, tuple) else s_, c_]
@@ -2409,16 +2533,19 @@ def main() -> int:
     # phase fflonk (the wrappers' SHAPES records): scans with the identity
     # between the first and last 64 rows, the twin on those rows of the
     # first and last 64 chains, the rows between checked equal to the row
-    # the scan enters them by; inverses and quotient parts on the first and
-    # last 4096 elements or points (seeded, edge values 0, 1, r - 1 at both
-    # ends).  B2's NTT passes, powers and fused poly_eval, and B3's
-    # batch-to-affine, digit kernels, bucket sums and reduce, at every
-    # logged shape.  B3 at full random scalars: at every distinct G1 point
-    # count of the phase (the card's window), over the prefix key's SRS
-    # (tau^i G) with every scalar full and random, against [sum s_i tau^i]
-    # G (the scalar in Fr on the card, the point in python ints); at the
-    # largest, with full scalars on the first and last 4096 points and zero
-    # between, against msm_plain on those.
+    # the scan enters them by; inverses on the first and last 4096
+    # elements and four whole blocks with zeros at the edges of runs and
+    # blocks (seeded, edge values 0, 1, r - 1 at both ends); quotient parts
+    # on the first and last 4096 points, a whole block and 4096 seeded
+    # points; then F2 and F3 at the edges of their blocks.  B2's NTT
+    # passes, powers and fused poly_eval, and B3's batch-to-affine, digit
+    # kernels, bucket sums and reduce, at every logged shape. B3 at full
+    # random scalars: at every distinct G1 point count of the phase (the
+    # card's window), over the prefix key's SRS (tau^i G) with every scalar
+    # full and random, against [sum s_i tau^i] G (the scalar in Fr on the
+    # card, the point in python ints); at the largest, with full scalars on
+    # the first and last 4096 points and zero between, against msm_plain on
+    # those.
     ff_holds = []
     ff_worst = {"F1": 0, "F2": 0, "F3": 0, "B2": 0, "B3": 0, "B4": 0}
 
@@ -2437,11 +2564,13 @@ def main() -> int:
     gen_ff.manual_seed(2029)
     for (length, k, op, backward) in sorted(ff_shapes.get("scan", {})):
         ff_hold("F1", fft_.hold_scan(length, k, op, backward, gen_ff, dev))
-    for n in sorted(ff_shapes.get("inv", {})):
-        ff_hold("F2", fft_.hold_inv(n, gen_ff, dev))
+    for res in fft_.inv_holds(sorted(ff_shapes.get("inv", {})), gen_ff, dev):
+        ff_hold("F2", res)
     for (part, n) in sorted(ff_shapes.get("quotient", {})):
         ff_hold("F3", fft_.hold_quotient(part, n, gen_ff, dev))
         torch.cuda.empty_cache()
+    for res in fft_.quotient_edge_holds(gen_ff, dev):
+        ff_hold("F3", res)
     # B2: the NTT sizes above final_holds' 2^24, the powers and poly_eval
     for (n, inverse) in sorted(ff_shapes.get("pass", {})):
         if n > 1 << 24:
@@ -2516,6 +2645,8 @@ def main() -> int:
             "max_abs_err": ff_worst[kid], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
             "per_fflonk_proof_device_ms": ff_b["device_ms"].get(kid, 0.0),
+            "per_fflonk_proof_bound_ms": ff_b["bound_ms"][kid],
+            "prefix_bound_ms": ff_c["bound_ms"][kid],
             "prefix_launches": sum(ff_c["launches"]["F"][k] for k in (
                 ("scan", "scan_carry") if kid == "F1" else
                 ("inv",) if kid == "F2" else ("quotient",))),
@@ -2538,7 +2669,9 @@ def main() -> int:
     ff_entry("F2", "bn_fr_inv", fl_b["inv"], [n2_],
              time_ms(lambda: ffk.inv(x2_), 3),
              once_ms(lambda: ffk.inv_plain(x2_[:8192])),
-             fft_.bound_inv(n2_), line="366", plain_held=[min(n2_, 8192)])
+             fft_.bound_inv(n2_), line="366", plain_held=[min(n2_, 8192)],
+             bound_ms_fermat=fft_.bound_inv_fermat(n2_)[0],
+             block=[ffk.geometry()[k] for k in ("inv_threads", "inv_run")])
     del x2_
     part3, n3_ = max(b_shapes["quotient"], key=lambda s_: (s_[1], s_[0]))
     cols3, consts3 = fft_.quotient_inputs(part3, n3_, gen_ff, dev)
@@ -2548,7 +2681,9 @@ def main() -> int:
              once_ms(lambda: ffk.quotient_plain(part3, cols3, **consts3,
                                                 rows=rows3)),
              fft_.bound_quotient(part3, n3_), line="326",
-             plain_held=[int(rows3.numel())])
+             plain_held=[int(rows3.numel())],
+             block=[ffk.geometry()["quotient_threads"],
+                    ffk.geometry()["quotient_run"] if part3 else 1])
     del cols3, rows3
     torch.cuda.empty_cache()
     emit({"phase": "fflonk_kernels", "kernels": entries[-3:]})
@@ -2567,4 +2702,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:] == ["--edge-holds"]:
+        print(json.dumps(edge_holds(torch.device("cuda"))), flush=True)
+        sys.exit(0)
+    sys.exit(main(kernel_holds_only=sys.argv[1:] == ["--kernel-holds"]))

@@ -20,6 +20,9 @@
 // low words, then bn_reduce_256 brings any value below 2^256 into [0, mod)
 // by conditional subtractions of 4 mod, 2 mod and mod (2^256 < 8 mod).
 //
+// bn_load / bn_store move an element by two 16-byte accesses;
+// fr_pow_from_table starts a run of powers from a table of squarings.
+//
 // Points: Jacobian (X, Y, Z), Z = 0 is infinity (written (1, 1, 0) by
 // pt_inf).  pt_add is complete as the reference's select form
 // (snark/curve.py:184-212): infinity on either side, equal points (the
@@ -278,6 +281,33 @@ __device__ __forceinline__ void bn_redc9(uint64_t* r, uint64_t* t) {
     }
     r[0] = t[4]; r[1] = t[5]; r[2] = t[6]; r[3] = t[7];  // t[8] is 0
     bn_reduce_256<P>(r);
+}
+
+// r = the element at p, by two 16-byte loads (p 16-byte aligned, read-only
+// for the kernel's whole run)
+__device__ __forceinline__ void bn_load(uint64_t* r, const uint64_t* p) {
+    const ulonglong2 lo = __ldg(reinterpret_cast<const ulonglong2*>(p));
+    const ulonglong2 hi = __ldg(reinterpret_cast<const ulonglong2*>(p) + 1);
+    r[0] = lo.x; r[1] = lo.y; r[2] = hi.x; r[3] = hi.y;
+}
+
+// the element a at p, by two 16-byte stores (p 16-byte aligned)
+__device__ __forceinline__ void bn_store(uint64_t* p, const uint64_t* a) {
+    reinterpret_cast<ulonglong2*>(p)[0] = make_ulonglong2(a[0], a[1]);
+    reinterpret_cast<ulonglong2*>(p)[1] = make_ulonglong2(a[2], a[3]);
+}
+
+// x = start * base^j0 from sq[i] = base^(2^i) (all Montgomery over Fr): the
+// first power of a run, one product a set bit of j0 (B2's powers and
+// poly_eval, F3's X)
+__device__ __forceinline__ void fr_pow_from_table(uint64_t* x,
+                                                  const uint64_t* start,
+                                                  const uint64_t* sq,
+                                                  long long j0) {
+    bn_copy(x, start);
+#pragma unroll 1
+    for (int i = 0; (j0 >> i) != 0; ++i)
+        if ((j0 >> i) & 1) mont_mul<FrP>(x, x, sq + 4 * i);
 }
 
 // ---------------------------------------------------------------------------

@@ -109,17 +109,6 @@ bn_fr_ntt_pass_kernel(const uint64_t* src, uint64_t* dst, int log_n, int s0,
     }
 }
 
-// x = start * base^j0 from sq[i] = base^(2^i) (all Montgomery)
-__device__ __forceinline__ void fr_pow_from_table(uint64_t* x,
-                                                  const uint64_t* start,
-                                                  const uint64_t* sq,
-                                                  long long j0) {
-    bn_copy(x, start);
-#pragma unroll 1
-    for (int i = 0; (j0 >> i) != 0; ++i)
-        if ((j0 >> i) & 1) mont_mul<FrP>(x, x, sq + 4 * i);
-}
-
 // out[j] = start * base^j; step = base^blockDim.x
 __global__ void __launch_bounds__(BN_NTT_THREADS)
 bn_fr_powers_kernel(const uint64_t* __restrict__ sq,

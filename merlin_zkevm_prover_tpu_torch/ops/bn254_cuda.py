@@ -114,14 +114,20 @@ def powers_plain(base: int, n: int, start: int = 1, device=None) -> torch.Tensor
     return bf.from16(out[:n])
 
 
-def _square_table(base: int, n: int, device) -> torch.Tensor:
-    """base^(2^i), Montgomery, for i below the bit length of n - 1 (at
-    least one entry): a thread's first power by square-and-multiply."""
+def square_ints(base: int, n: int) -> list:
+    """base^(2^i) over Fr for i below the bit length of n - 1 (at least one
+    entry): the table a run of powers starts from (a thread's first power
+    by square-and-multiply over its index's bits)."""
     vals, b = [], base % FR.mod
     for _ in range(max(1, (n - 1).bit_length())):
         vals.append(b)
         b = b * b % FR.mod
-    return bf.from_int(FR, vals, device)
+    return vals
+
+
+def _square_table(base: int, n: int, device) -> torch.Tensor:
+    """square_ints(base, n), Montgomery, on `device`."""
+    return bf.from_int(FR, square_ints(base, n), device)
 
 
 def powers(base: int, n: int, start: int = 1, device=None) -> torch.Tensor:

@@ -5,11 +5,15 @@ plain twins.
     ``k`` interleaved chains (element i in chain i mod k), forwards or
     backwards: division by ``X^k - beta``, the grand product's prefix
     products, sums of stacked polynomials (``snark/fflonk.py``).
-``inv``       F2: elementwise inverse ``a^(r - 2)`` (0 for 0).
-``quotient``  F3: the quotient numerators on a domain, one thread a point:
+``inv``       F2: elementwise inverse (0 for 0) by Montgomery's batch
+    trick: a thread's run of elements a block apart, a product tree in
+    shared memory, one inversion a block (binary extended Euclid).
+``quotient``  F3: the quotient numerators on a domain, one kernel a part:
     part 0 ``t0``, part 1 the grand product's factors ``num`` and ``den``,
     part 2 ``t1`` and ``t2`` (the JAX package's loops at
-    ``snark/fflonk.py:326-332, 352-367, 383-399``).
+    ``snark/fflonk.py:326-332, 352-367, 383-399``); a thread takes a run
+    of points a block apart, X = root^i one product a point after the
+    run's first (``power_runs_plain`` is that schedule in plain torch).
 
 Elements are Montgomery ``(m, 4)`` int64 tensors (``ops/bn254_field.py``);
 constants are python ints.  Each wrapper takes its plain twin only for a
@@ -26,6 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import bn254_cuda
 from . import bn254_field as bf
 from . import cuda_build
 from .bn254_field import FR
@@ -43,6 +48,14 @@ PART_COLUMNS = {0: ("a", "b", "c", "ql", "qr", "qm", "qo", "qc", "pi"),
 PART_OUTPUTS = {0: 1, 1: 2, 2: 2}
 K1 = 2
 K2 = 3
+TWO_ADICITY = 28   # QuotientArgs.sq's rows (Fr's two-adicity)
+# the kernels' launch geometry (csrc/bn254_fflonk.cu's #defines, read from
+# the library on the card by geometry()): F2's block and run, F3's block
+# and run in parts 1 and 2 (part 0 takes one point a thread)
+INV_THREADS = 256
+INV_RUN = 4
+QUOTIENT_THREADS = 256
+QUOTIENT_RUN = 64
 
 _vp = ctypes.c_void_p
 
@@ -154,6 +167,16 @@ def inv_plain(a: torch.Tensor) -> torch.Tensor:
     return bf.from16(r)
 
 
+def geometry() -> dict:
+    """The launch geometry of F2 and F3 as the library was built:
+    {"inv_threads", "inv_run", "quotient_threads", "quotient_run" (parts 1
+    and 2; part 0 takes one point a thread)} (a thread's run of elements
+    or points lies a block apart)."""
+    lib = cuda_build.lib()
+    return {k: lib.merlin_bn_fflonk_geometry(i) for i, k in enumerate(
+        ("inv_threads", "inv_run", "quotient_threads", "quotient_run"))}
+
+
 def inv(a: torch.Tensor) -> torch.Tensor:
     """Elementwise inverse of (m, 4) Montgomery `a` (0 for 0)."""
     _check(a, "inv")
@@ -181,11 +204,11 @@ class _QuotientArgs(ctypes.Structure):
     field."""
     _fields_ = ([(name, ctypes.c_void_p) for name in QUOTIENT_COLUMNS]
                 + [("out0", ctypes.c_void_p), ("out1", ctypes.c_void_p),
-                   ("out2", ctypes.c_void_p), ("n", ctypes.c_longlong),
-                   ("shift", ctypes.c_longlong)]
+                   ("n", ctypes.c_longlong), ("shift", ctypes.c_longlong),
+                   ("s_stride", ctypes.c_longlong),
+                   ("sq", (ctypes.c_uint64 * 4) * TWO_ADICITY)]
                 + [(name, ctypes.c_uint64 * 4) for name in
-                   ("root", "beta", "gamma", "k1beta", "k2beta")]
-                + [("part", ctypes.c_longlong)])
+                   ("root_step", "beta", "gamma", "k1beta", "k2beta")])
 
 
 def _mont_words(v: int):
@@ -224,17 +247,40 @@ def _pow_rows16(root: int, rows: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def power_runs_plain(root: int, n: int, threads: int = QUOTIENT_THREADS,
+                     run: int = QUOTIENT_RUN, device=None) -> torch.Tensor:
+    """root^i for i < n, (n, 16) Montgomery limbs, on F3's schedule: the
+    thread j0 = b threads run + t (t < threads) takes the points j0 + r
+    threads (r < run); its first power by square-and-multiply over j0's
+    bits, then one product by root^threads a point."""
+    per = threads * run
+    starts = (torch.arange(-(-n // per), device=device)[:, None] * per
+              + torch.arange(threads, device=device)[None]).reshape(-1)
+    starts = starts[starts < n]
+    x = _pow_rows16(root, starts)
+    step = bf.const16(FR, pow(root, threads, FR.mod), device)
+    out = torch.empty((n, bf.N16), dtype=torch.int64, device=device)
+    for r in range(run):
+        idx = starts + r * threads
+        keep = idx < n
+        if not bool(keep.any()):
+            break
+        out[idx[keep]] = x[keep]
+        x = bf.mul16(FR, x, step)
+    return out
+
+
 def quotient_plain(part: int, cols: dict, root: int = 1, beta: int = 0,
                    gamma: int = 0, shift: int = 0,
                    rows: Optional[torch.Tensor] = None):
     """The numerators at the points `rows` of the domain (all of it when
-    None), in the plain arithmetic."""
+    None: X on F3's schedule, power_runs_plain), in the plain arithmetic;
+    the powers at `rows` by square-and-multiply over each row's bits."""
     n, dev = _columns(part, cols)
-    if rows is None:
-        rows = torch.arange(n, device=dev)
 
     def col(name, at=None):
-        return bf.to16(cols[name][rows if at is None else at])
+        return bf.to16(cols[name] if at is None and rows is None else
+                       cols[name][rows if at is None else at])
 
     mul = lambda x, y: bf.mul16(FR, x, y)      # noqa: E731
     add = lambda x, y: bf.add16(FR, x, y)      # noqa: E731
@@ -244,7 +290,8 @@ def quotient_plain(part: int, cols: dict, root: int = 1, beta: int = 0,
                              mul(mul(a, b), col("qm"))), mul(c, col("qo"))),
                      col("qc")), col("pi"))
         return (bf.from16(t0),)
-    x = _pow_rows16(root, rows)
+    x = power_runs_plain(root, n, device=dev) if rows is None else \
+        _pow_rows16(root, rows)
     g = bf.const16(FR, gamma, dev)
     be = bf.const16(FR, beta, dev)
     bx = mul(x, be)
@@ -258,9 +305,23 @@ def quotient_plain(part: int, cols: dict, root: int = 1, beta: int = 0,
         return bf.from16(num), bf.from16(den)
     z = col("z")
     t1 = mul(bf.sub16(FR, z, bf.const16(FR, 1, dev)), col("l1"))
-    zw = col("z", (rows + shift) % n)
+    at = torch.arange(n, device=dev) if rows is None else rows
+    zw = col("z", (at + shift) % n)
     t2 = bf.sub16(FR, mul(num, z), mul(den, zw))
     return bf.from16(t1), bf.from16(t2)
+
+
+def _s_stride(cols: dict, part: int) -> int:
+    """The row stride (in elements) that s1..s3 share as they are given
+    (rows of 4 contiguous words a fixed number of elements apart); 0 when
+    they share none (they are then copied)."""
+    if part == 0:
+        return 1
+    strides = {cols[k].stride(0) if cols[k].stride(1) == 1 else -1
+               for k in ("s1", "s2", "s3")}
+    st = strides.pop()
+    return st // bf.N_LIMBS if not strides and st > 0 and \
+        st % bf.N_LIMBS == 0 else 0
 
 
 def quotient(part: int, cols: dict, root: int = 1, beta: int = 0,
@@ -269,29 +330,42 @@ def quotient(part: int, cols: dict, root: int = 1, beta: int = 0,
     Montgomery over the n points of the columns' domain (X = root^i,
     z(omega X) = z[(i + shift) mod n]).  `cols` maps the names of
     QUOTIENT_COLUMNS that the part reads (PART_COLUMNS) to (n, 4)
-    Montgomery columns; beta, gamma, root plain ints."""
+    Montgomery columns (s1..s3 may be row-strided views, as ``x[::4]`` of
+    a larger domain's evaluations, read in place); beta, gamma, root plain
+    ints."""
     n, dev = _columns(part, cols)
     if dev.type != "cuda":
         return quotient_plain(part, cols, root, beta, gamma, shift)
     args = _QuotientArgs()
     keep = []
+    s_stride = _s_stride(cols, part)
     for name in QUOTIENT_COLUMNS:
         t = cols.get(name) if name in PART_COLUMNS[part] else None
         if t is not None:
-            t = t.contiguous()
+            if not (name in ("s1", "s2", "s3") and s_stride):
+                t = t.contiguous()
+            if t.data_ptr() % 16:
+                raise ValueError(f"quotient: column {name!r} is not 16-byte "
+                                 "aligned")
             keep.append(t)
         setattr(args, name, t.data_ptr() if t is not None else None)
     outs = tuple(torch.empty((n, bf.N_LIMBS), dtype=torch.int64, device=dev)
                  for _ in range(PART_OUTPUTS[part]))
-    for j, name in enumerate(("out0", "out1", "out2")):
+    for j, name in enumerate(("out0", "out1")):
         setattr(args, name, outs[j].data_ptr() if j < len(outs) else None)
-    args.n, args.shift, args.part = n, int(shift), part
-    args.root, args.beta, args.gamma = (_mont_words(root), _mont_words(beta),
-                                        _mont_words(gamma))
-    args.k1beta, args.k2beta = _mont_words(K1 * beta), _mont_words(K2 * beta)
+    args.n, args.s_stride = n, s_stride or 1
+    args.shift = int(shift) % n if n else 0
     if n:
+        geo = geometry()
+        for i, v in enumerate(bn254_cuda.square_ints(root, n)):
+            args.sq[i] = _mont_words(v)
+        args.root_step = _mont_words(pow(root, geo["quotient_threads"],
+                                         FR.mod))
+        args.beta, args.gamma = _mont_words(beta), _mont_words(gamma)
+        args.k1beta, args.k2beta = (_mont_words(K1 * beta),
+                                    _mont_words(K2 * beta))
         cuda_build.check(cuda_build.lib().merlin_bn_fflonk_quotient(
-            ctypes.byref(args), _vp(cuda_build.stream_ptr())),
+            ctypes.byref(args), part, _vp(cuda_build.stream_ptr())),
             "bn254 fflonk quotient")
         cuda_build.count(LAUNCHES, SHAPES, "quotient", (part, n))
     del keep

@@ -184,7 +184,8 @@ def lib() -> ctypes.CDLL:
                     ("merlin_bn_fr_scan_carry", [vp, ll, ll, ll, ci, ci, vp, vp]),
                     ("merlin_bn_fr_scan_seg", []),
                     ("merlin_bn_fr_inv", [vp, ll, vp, vp]),
-                    ("merlin_bn_fflonk_quotient", [vp, vp])):
+                    ("merlin_bn_fflonk_quotient", [vp, ci, vp]),
+                    ("merlin_bn_fflonk_geometry", [ci])):
                 fn = getattr(cdll, name)
                 fn.argtypes = args
                 fn.restype = ci

@@ -51,15 +51,28 @@ from .poseidon_cuda import (  # noqa: F401  (re-exported)
 # ---------------------------------------------------------------------------
 
 
+# mds_host(v): the MDS product of 12 python ints, reduced mod P, written out
+# term by term (no loop: the verifier's Merkle paths and the recursion
+# circuit's Poseidon witnesses spend most of their time here)
+mds_host = eval("lambda v: [" + ", ".join(
+    "(" + " + ".join(f"{MDS[x][y]} * v[{y}]" for y in range(WIDTH)) + f") % {P}"
+    for x in range(WIDTH)) + "]")
+
+
+def _pow7(x: int) -> int:
+    x2 = x * x % P
+    return x2 * x2 % P * x2 % P * x % P
+
+
 def permute_host(state: Sequence[int]) -> List[int]:
     st = [s % P for s in state]
     for r in range(N_ROUNDS):
         st = [(st[s] + ROUND_CONSTANTS[r * WIDTH + s]) % P for s in range(WIDTH)]
         if r < _HALF_F or r >= _HALF_F + N_PARTIAL_ROUNDS:
-            st = [pow(s, 7, P) for s in st]
+            st = [_pow7(s) for s in st]
         else:
-            st = [pow(st[0], 7, P)] + st[1:]
-        st = [sum(MDS[x][y] * st[y] for y in range(WIDTH)) % P for x in range(WIDTH)]
+            st[0] = _pow7(st[0])
+        st = mds_host(st)
     return st
 
 

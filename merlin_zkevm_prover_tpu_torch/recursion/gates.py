@@ -23,7 +23,8 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..ops.goldilocks import P
-from ..ops.poseidon_constants import MDS, ROUND_CONSTANTS, WIDTH
+from ..ops.poseidon_constants import ROUND_CONSTANTS, WIDTH
+from ..ops.poseidon_gl import mds_host
 
 N_ROUNDS = 30
 
@@ -224,23 +225,27 @@ class Circuit:
         assert len(state) == WIDTH
         states = [list(state)]
         cubes: List[List[int]] = []
-        st = [self.values[w] for w in state]
+        values = self.values
+        st = [values[w] for w in state]
         half_f = 4
         n_partial = 22
         for r in range(N_ROUNDS):
             a = [(st[j] + ROUND_CONSTANTS[r * WIDTH + j]) % P
                  for j in range(WIDTH)]
-            cube_vals = [pow(x, 3, P) for x in a]
-            cubes.append([self.witness(cv) for cv in cube_vals])
+            cube_vals = [x * x % P * x % P for x in a]
+            # the round's 12 cube wires, then its 12 state wires, as
+            # witness() would number them (the values are reduced already)
+            cubes.append(list(range(len(values), len(values) + WIDTH)))
+            values.extend(cube_vals)
             full = r < half_f or r >= half_f + n_partial
             if full:
                 sbox = [cube_vals[j] * cube_vals[j] % P * a[j] % P
                         for j in range(WIDTH)]
             else:
                 sbox = [cube_vals[0] * cube_vals[0] % P * a[0] % P] + a[1:]
-            st = [sum(MDS[x][y] * sbox[y] for y in range(WIDTH)) % P
-                  for x in range(WIDTH)]
-            states.append([self.witness(v) for v in st])
+            st = mds_host(sbox)
+            states.append(list(range(len(values), len(values) + WIDTH)))
+            values.extend(st)
         self.pos_blocks.append(PoseidonBlock(states, cubes))
         return states[-1]
 

@@ -23,7 +23,8 @@ All constraints have degree <= 4, so the STARK uses blowup 4.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from itertools import accumulate, repeat
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -71,36 +72,52 @@ def plan_layout(c: Circuit, n_bits: Optional[int] = None) -> Layout:
     return Layout(n_bits, n_pub_rows, n_gate_rows, n_pos_rows)
 
 
-def _slot_map(c: Circuit, lay: Layout) -> List[Tuple[int, int, int]]:
-    """All copy-relevant slots as (wire, row, col<12), in placement order."""
-    slots: List[Tuple[int, int, int]] = []
-    for i, pw in enumerate(c.public_wires):
-        slots.append((pw, i // WIDTH, i % WIDTH))
-    for g, gate in enumerate(c.gates):
-        row = lay.gate_base + g // 4
-        s = g % 4
-        slots.append((gate.a, row, 3 * s))
-        slots.append((gate.b, row, 3 * s + 1))
-        slots.append((gate.c, row, 3 * s + 2))
-    for bi, blk in enumerate(c.pos_blocks):
-        base = lay.pos_base + BLOCK_ROWS * bi
-        for r, st in enumerate(blk.states):
-            for j, wid in enumerate(st):
-                slots.append((wid, base + r, j))
-    return slots
+def _slot_map(c: Circuit, lay: Layout) -> np.ndarray:
+    """All copy-relevant slots as (m, 3) rows (wire, row, col < 12), in
+    placement order: the publics, each gate's a, b, c, each Poseidon
+    block's states."""
+    n_pub, n_g = len(c.public_wires), len(c.gates)
+    i = np.arange(n_pub, dtype=np.int64)
+    pub = np.stack([np.array(c.public_wires, dtype=np.int64).reshape(n_pub),
+                    i // WIDTH, i % WIDTH], axis=1)
+    g = np.arange(n_g, dtype=np.int64)
+    abc = np.array([(gate.a, gate.b, gate.c) for gate in c.gates],
+                   dtype=np.int64).reshape(n_g, 3)
+    gates = np.stack([abc.reshape(-1),
+                      np.repeat(lay.gate_base + g // 4, 3),
+                      (3 * (g % 4)[:, None] + np.arange(3)).reshape(-1)],
+                     axis=1)
+    states = np.array([blk.states for blk in c.pos_blocks],
+                      dtype=np.int64).reshape(len(c.pos_blocks), BLOCK_ROWS,
+                                              WIDTH)
+    rows = (lay.pos_base + BLOCK_ROWS * np.arange(len(c.pos_blocks))[:, None]
+            + np.arange(BLOCK_ROWS))
+    pos = np.stack([states.reshape(-1),
+                    np.repeat(rows.reshape(-1), WIDTH),
+                    np.tile(np.arange(WIDTH), rows.size)], axis=1)
+    return np.concatenate([pub, gates, pos]).astype(np.int64, copy=False)
 
 
-def fill_trace(c: Circuit, lay: Layout) -> np.ndarray:
-    """(N, 24) uint64 witness trace for the circuit under this layout."""
+def _block_rows(c: Circuit, lay: Layout, k: int) -> np.ndarray:
+    """(blocks, k) trace rows of each Poseidon block's first k rows."""
+    return (lay.pos_base + BLOCK_ROWS * np.arange(len(c.pos_blocks))[:, None]
+            + np.arange(k))
+
+
+def fill_trace(c: Circuit, lay: Layout,
+               slots: Optional[np.ndarray] = None) -> np.ndarray:
+    """(N, 24) uint64 witness trace for the circuit under this layout
+    (`slots`: _slot_map's, when the caller has it)."""
     n = lay.n
+    if slots is None:
+        slots = _slot_map(c, lay)
+    values = np.array(c.values, dtype=np.uint64)
     trace = np.zeros((n, 2 * WIDTH), dtype=np.uint64)
-    for wid, row, col in _slot_map(c, lay):
-        trace[row, col] = c.values[wid]
-    for bi, blk in enumerate(c.pos_blocks):
-        base = lay.pos_base + BLOCK_ROWS * bi
-        for r, cubes in enumerate(blk.cubes):
-            for j, wid in enumerate(cubes):
-                trace[base + r, WIDTH + j] = c.values[wid]
+    trace[slots[:, 1], slots[:, 2]] = values[slots[:, 0]]
+    if c.pos_blocks:
+        cubes = np.array([blk.cubes for blk in c.pos_blocks], dtype=np.int64)
+        trace[_block_rows(c, lay, N_ROUNDS)[:, :, None],
+              WIDTH + np.arange(WIDTH)] = values[cubes]
     return trace
 
 
@@ -123,41 +140,43 @@ def circuit_to_air(c: Circuit, name: str,
     q_pos_f = np.zeros(n, dtype=np.uint64)
     q_pos_p = np.zeros(n, dtype=np.uint64)
     c_cols = np.zeros((n, WIDTH), dtype=np.uint64)
-    for bi in range(len(c.pos_blocks)):
-        base = lay.pos_base + BLOCK_ROWS * bi
-        for r in range(N_ROUNDS):
-            full = r < HALF_F or r >= HALF_F + N_PARTIAL
-            (q_pos_f if full else q_pos_p)[base + r] = 1
-            for j in range(WIDTH):
-                c_cols[base + r, j] = ROUND_CONSTANTS[r * WIDTH + j] % P
+    rows = _block_rows(c, lay, N_ROUNDS)
+    full = np.array([r < HALF_F or r >= HALF_F + N_PARTIAL
+                     for r in range(N_ROUNDS)])
+    q_pos_f[rows[:, full]] = 1
+    q_pos_p[rows[:, ~full]] = 1
+    c_cols[rows] = np.array([v % P for v in ROUND_CONSTANTS[:N_ROUNDS * WIDTH]],
+                            dtype=np.uint64).reshape(N_ROUNDS, WIDTH)
 
     qsel = np.zeros((n, 4, 5), dtype=np.uint64)  # [row, slot, (L,R,O,M,C)]
-    for g, gate in enumerate(c.gates):
-        row = lay.gate_base + g // 4
-        s = g % 4
-        qsel[row, s] = (gate.ql % P, gate.qr % P, gate.qo % P,
-                        gate.qm % P, gate.qc % P)
+    first = 4 * lay.gate_base                     # gate g: row base + g // 4
+    qsel.reshape(4 * n, 5)[first:first + len(c.gates)] = np.array(
+        [(gate.ql % P, gate.qr % P, gate.qo % P, gate.qm % P, gate.qc % P)
+         for gate in c.gates], dtype=np.uint64).reshape(len(c.gates), 5)
 
-    # sigma columns: S_c[r] = k_{c'} * w^{r'} for the cycle successor
+    # sigma columns: S_c[r] = k_{c'} * w^{r'} for the cycle successor, the
+    # identity's k_c * w^r where a wire has one slot
     wn = gl_w(lay.n_bits)
-    xs = np.empty(n, dtype=np.uint64)
-    cur = 1
-    for r in range(n):
-        xs[r] = cur
-        cur = cur * wn % P
+    xs = list(accumulate(repeat(wn, n - 1), lambda a, b: a * b % P,
+                         initial=1))
     ks = [pow(7, j, P) for j in range(WIDTH)]
-    s_cols = np.empty((n, WIDTH), dtype=np.uint64)
+    ident = np.empty((n, WIDTH), dtype=np.uint64)
     for j in range(WIDTH):
-        s_cols[:, j] = (xs.astype(object) * ks[j] % P).astype(np.uint64)
-    wire_slots: Dict[int, List[Tuple[int, int]]] = {}
-    for wid, row, col in _slot_map(c, lay):
-        wire_slots.setdefault(wid, []).append((row, col))
-    for wid, slots in wire_slots.items():
-        if len(slots) < 2:
-            continue
-        for i, (r, col) in enumerate(slots):
-            r2, c2 = slots[(i + 1) % len(slots)]
-            s_cols[r, col] = ks[c2] * int(xs[r2]) % P
+        ident[:, j] = [x * ks[j] % P for x in xs]
+    slots = _slot_map(c, lay)
+    # each wire's slots in placement order (a stable sort by wire), each
+    # slot pointing at the next one of its wire, the last at the first
+    order = np.argsort(slots[:, 0], kind="stable")
+    wid = slots[order, 0]
+    at = np.arange(len(order))
+    first_of = np.r_[True, wid[1:] != wid[:-1]]
+    last_of = np.r_[wid[1:] != wid[:-1], True]
+    nxt = np.where(last_of, np.maximum.accumulate(np.where(first_of, at, 0)),
+                   at + 1)
+    cyc = ~(first_of & last_of)
+    src, dst = slots[order[cyc]], slots[order[nxt[cyc]]]
+    s_cols = ident.copy()
+    s_cols[src[:, 1], src[:, 2]] = ident[dst[:, 1], dst[:, 2]]
 
     e_pos_f = air.constant("qPosF", q_pos_f)
     e_pos_p = air.constant("qPosP", q_pos_p)
@@ -193,5 +212,5 @@ def circuit_to_air(c: Circuit, name: str,
 
     air.connection(w_cols, e_s)
 
-    trace = fill_trace(c, lay)
+    trace = fill_trace(c, lay, slots)
     return air, trace, lay

@@ -509,11 +509,10 @@ def fflonk_prove(key: FflonkKey, a_vals, b_vals, c_vals,
     gamma = tr.get_challenge()
 
     sig_ev4 = [poly_extend_evals(s, n4) for s in key.sigma_coefs]
+    # the n-domain sigmas are every fourth 4n evaluation, read in place
     num, den = ffk.quotient(
-        1, {"a": bufA, "b": bufB, "c": bufC,
-            "s1": sig_ev4[0][::4].contiguous(),
-            "s2": sig_ev4[1][::4].contiguous(),
-            "s3": sig_ev4[2][::4].contiguous()},
+        1, {"a": bufA, "b": bufB, "c": bufC, "s1": sig_ev4[0][::4],
+            "s2": sig_ev4[1][::4], "s3": sig_ev4[2][::4]},
         root=w, beta=beta, gamma=gamma)
     del bufA, bufB, bufC
     # z_{i+1} = prod_{j <= i} num_j / prod_{j <= i} den_j: F1's prefix

@@ -179,6 +179,7 @@ from merlin_zkevm_prover_tpu.utils.keccak import keccak256 as jax_keccak  # noqa
 from merlin_zkevm_prover_tpu_torch import convert  # noqa: E402
 from merlin_zkevm_prover_tpu_torch.ops import bn254_cuda  # noqa: E402
 from merlin_zkevm_prover_tpu_torch.ops import bn254_fflonk_cuda as ffk  # noqa: E402
+from merlin_zkevm_prover_tpu_torch.ops import bn254_field as bf  # noqa: E402
 from merlin_zkevm_prover_tpu_torch.recursion.final import FinalStage  # noqa: E402
 from merlin_zkevm_prover_tpu_torch.snark import fflonk as pf  # noqa: E402
 from merlin_zkevm_prover_tpu_torch.snark import r1cs_to_plonk as prt  # noqa: E402
@@ -284,6 +285,151 @@ def test_inv_twin():
     assert got == [pow(v, FR - 2, FR) for v in vals]
 
 
+def _csrc_define(name):
+    """The value of a ``#define`` of csrc/bn254_fflonk.cu."""
+    import re
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "merlin_zkevm_prover_tpu_torch", "csrc", "bn254_fflonk.cu")
+    with open(path) as f:
+        return int(re.search(rf"^#define {name} (\d+)", f.read(), re.M).group(1))
+
+
+def test_fflonk_geometry_matches_source():
+    """The wrapper's geometry constants are the kernels' #defines; F2's
+    product tree needs a power-of-two block."""
+    assert (ffk.INV_THREADS, ffk.INV_RUN, ffk.QUOTIENT_THREADS,
+            ffk.QUOTIENT_RUN, ffk.TWO_ADICITY) == tuple(_csrc_define(k) for k in (
+                "BN_INV_THREADS", "BN_INV_RUN", "BN_FFLONK_THREADS",
+                "BN_QUOTIENT_RUN", "BN_FR_TWO_ADICITY"))
+    assert ffk.INV_THREADS & (ffk.INV_THREADS - 1) == 0
+
+
+def _inv_edge_vals(n, per, threads, run, seed):
+    """n values with zeros at the first and last slot of some threads' runs
+    and of every block, a block of zeros only (the second, when there are
+    three), 1 and r - 1."""
+    rng = random.Random(seed)
+    vals = [rng.choice([1, FR - 1, rng.randrange(1, FR)]) for _ in range(n)]
+    nb = -(-n // per)
+    for b in range(nb):
+        for t in (0, 1, threads - 1):
+            for r in (0, run - 1):
+                if b * per + t + r * threads < n:
+                    vals[b * per + t + r * threads] = 0
+    if nb >= 3:
+        vals[per:2 * per] = [0] * per
+    return vals
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 1000])
+def test_inv_twin_matches_reference(n):
+    """F2's twin at zeros and at the block edges' sizes against the JAX
+    package's ``_inv``."""
+    vals = _inv_edge_vals(n, 64, 16, 4, n)
+    assert _ints(ffk.inv(_t(vals))) == [jf._inv(v) for v in vals]
+
+
+def _binary_inv(x):
+    """A python-int transcription of fr_inv_binary's loop: 1 / x mod r by
+    the binary extended Euclidean algorithm (x in [1, r))."""
+    u, v, x1, x2 = x, FR, 1, 0
+    while u != 1 and v != 1:
+        while u % 2 == 0:
+            u //= 2
+            x1 = (x1 if x1 % 2 == 0 else x1 + FR) // 2
+        while v % 2 == 0:
+            v //= 2
+            x2 = (x2 if x2 % 2 == 0 else x2 + FR) // 2
+        if u >= v:
+            u, x1 = u - v, (x1 - x2) % FR
+        else:
+            v, x2 = v - u, (x2 - x1) % FR
+    return x1 if u == 1 else x2
+
+
+@pytest.mark.parametrize("x", [1, 2, 3, FR - 1, FR - 2, 1 << 64, (1 << 253) % FR,
+                               0x30644E72E131A029B85045B68181585D, 12345678910])
+def test_binary_inverse_model(x):
+    """fr_inv_binary on a Montgomery word X = x R: the loop gives 1 / X,
+    two Montgomery products by R^2 give R / x, Montgomery's 1 / x."""
+    R = pow(2, 256, FR)
+    X = x * R % FR
+    mont = lambda a, b: a * b * pow(R, -1, FR) % FR    # noqa: E731
+    assert _binary_inv(X) * X % FR == 1
+    assert mont(mont(_binary_inv(X), R * R % FR), R * R % FR) == \
+        pow(x, FR - 2, FR) * R % FR
+
+
+def _model_inv(vals, threads, run):
+    """A python-int transcription of csrc/bn254_fflonk.cu's
+    bn_fr_inv_kernel: blocks of threads x run elements, thread t's run t,
+    t + T, ...; prefix products (a zero or a slot past n as one), the
+    threads' totals up a product tree (node k's children 2k, 2k + 1), one
+    inversion of the root (fr_inv_binary), the inverses down the tree, the
+    run walked backwards."""
+    n, per = len(vals), threads * run
+    out = [None] * n
+    for blk in range(-(-n // per)):
+        pre, tree = {}, [None] * (2 * threads)
+        for t in range(threads):
+            acc = 1
+            for r in range(run):
+                e = blk * per + t + r * threads
+                if e < n and vals[e]:
+                    acc = acc * vals[e] % FR
+                pre[t, r] = acc
+            tree[threads + t] = acc
+        s = threads // 2
+        while s >= 1:
+            for k in range(s, 2 * s):
+                tree[k] = tree[2 * k] * tree[2 * k + 1] % FR
+            s //= 2
+        tree[1] = _binary_inv(tree[1])
+        s = 1
+        while s < threads:
+            for k in range(s, 2 * s):
+                inv, left, right = tree[k], tree[2 * k], tree[2 * k + 1]
+                tree[2 * k], tree[2 * k + 1] = inv * right % FR, inv * left % FR
+            s *= 2
+        for t in range(threads):
+            acc = tree[threads + t]
+            for r in range(run - 1, -1, -1):
+                e = blk * per + t + r * threads
+                if e >= n:
+                    continue
+                if vals[e] == 0:
+                    out[e] = 0
+                    continue
+                out[e] = acc * pre[t, r - 1] % FR if r else acc
+                acc = acc * vals[e] % FR
+    return out
+
+
+@pytest.mark.parametrize("threads,run,n", [(4, 2, 1), (4, 2, 29), (8, 3, 24),
+                                           (8, 3, 73), (2, 1, 9), (1, 4, 10),
+                                           (256, 8, 2 * 2048 + 5)])
+def test_inv_kernel_model(threads, run, n):
+    """The batch inverse's schedule gives every inverse (0 for 0) at ragged
+    ends, zero slots and a block of zeros; the last case at the source's
+    geometry."""
+    if threads == 256:
+        threads, run = ffk.INV_THREADS, ffk.INV_RUN
+    vals = _inv_edge_vals(n, threads * run, threads, run, n + threads)
+    assert _model_inv(vals, threads, run) == [pow(v, FR - 2, FR) for v in vals]
+
+
+@pytest.mark.parametrize("n", [8, 32, 64])
+@pytest.mark.parametrize("threads,run", [(4, 2), (2, 3), (16, 1),
+                                         (ffk.QUOTIENT_THREADS, ffk.QUOTIENT_RUN)])
+def test_power_runs_match_pow(n, threads, run):
+    """F3's schedule of X: each thread's first power from the root's
+    squarings, then one product by root^threads a point."""
+    root = jf._find_w(n)
+    got = _ints(bf.from16(ffk.power_runs_plain(root, n, threads, run, CPU)))
+    assert got == [pow(root, i, FR) for i in range(n)]
+
+
 def _quotient_oracle(cols, root, beta, gamma, shift):
     n = len(cols["a"])
     t0, num, den, t1, t2 = [], [], [], [], []
@@ -325,6 +471,27 @@ def test_quotient_twin(n):
                                          for w in want[3:]]
     with pytest.raises(ValueError):
         ffk.quotient(2, {k: tc[k] for k in ("a", "b", "c")})
+
+
+@pytest.mark.parametrize("n", [8, 32, 64])
+def test_quotient_strided_sigmas(n):
+    """Part 1 with s1..s3 every fourth row of 4n evaluations (the prover's
+    views, read in place) against the python-int oracle."""
+    rng = random.Random(n + 1)
+    cols = {k: [rng.choice([0, 1, FR - 1, rng.randrange(FR)]) for _ in range(n)]
+            for k in ffk.PART_COLUMNS[1]}
+    big = {k: [rng.randrange(FR) for _ in range(4 * n)] for k in ("s1", "s2", "s3")}
+    for k in big:
+        cols[k] = big[k][::4]
+    root, beta, gamma = jf._find_w(n), rng.randrange(FR), rng.randrange(FR)
+    full = dict(cols, **{k: [0] * n for k in ffk.QUOTIENT_COLUMNS
+                         if k not in cols})
+    want = _quotient_oracle(full, root, beta, gamma, 0)
+    tc = {k: _t(cols[k]) for k in ("a", "b", "c")}
+    tc.update({k: _t(big[k])[::4] for k in big})
+    assert ffk._s_stride(tc, 1) == 4
+    num, den = ffk.quotient(1, tc, root=root, beta=beta, gamma=gamma)
+    assert [_ints(num), _ints(den)] == [want[1], want[2]]
 
 
 # ---------------------------------------------------------------------------
