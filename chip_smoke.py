@@ -42,6 +42,22 @@ and the exit code is non-zero unless every phase passed):
            (``ops.poseidon_gl.permute``) on a (12, 270600) state, the
            PoseidonG state machine's capacity at 2^23 rows; columns checked
            against the python-int permutation
+  state    the PoseidonG state machine at 2^23 rows through
+           PoseidonGExecutor.execute: 200,000 seeded inputs of 12, 16 and
+           17 words (permutation ids 1-4; p and 2^64 - 1 in the first),
+           their digests from K1, the other slots of the 270,600 padding;
+           kernel S1 (round_trace) launched once, its 19 columns held
+           against the plain version on the card, the first and last 64
+           slots and the dead rows against the python-int rounds, raw
+           words through S1 and its plain version, a changed digest must
+           raise; then the state tree: Smt64.build of 2^20 seeded keys
+           (some words at or above p) from the empty tree and of 4,096
+           writes (updates, deletes, fresh keys) over its root, on K1 (its
+           launches and device ms, the host seconds of each piece), held
+           at kernels_check against the same builds on K1's plain version
+           on the card, which the kernel-holds process runs (roots, node
+           counts, a SHA-256 of the nodes); and a 2^12-key build's root
+           against the binary SMT's sequential sets (hashdb.HashDB)
   golden   smoke proofs at n_bits 5, 10, 11 and 13 proven on the card equal,
            field by field, the proofs the JAX prover wrote (tests/data/); the
            n_bits 11 proof is K6's path (its LDE runs block lengths 4 and 8);
@@ -154,17 +170,18 @@ and the exit code is non-zero unless every phase passed):
            count of the phase, full random scalars, its first and last 512
            results against its twin
 
-Each path (permute, each golden proof, prove, prove_vm, each recursion
-stage, the final hop, the golden final hop, each fflonk case) is driven with every launch
-counter set to 0 just before it and read just after.  Each phase's line
+Each path (permute, state's PoseidonG execute and tree builds, each golden
+proof, prove, prove_vm, each recursion stage, the final hop, the golden
+final hop, each fflonk case) is driven with every launch counter set to 0
+just before it and read just after.  Each phase's line
 carries ``t_s``, the seconds since the script started.
 
 Output: one JSON object per line.  Early lines (phases
 ``poseidon_build``, ``ntt_build``, ``bn254_build``) give each kernel's
 registers, stack and spills from the build log; the ``prove`` line gives the node-hash launches per kernel
 variant.  The line before the last lists every
-kernel (K1 to K6, and vm_run, B1-B4 and F1-F3, which have no Pallas
-counterpart)
+kernel (K1 to K6, and vm_run, round_trace (S1), B1-B4 and F1-F3, which
+have no Pallas counterpart)
 with its launches on its path, its launches in each recursion stage
 (``recursion_launches``), its error against the plain version, its time,
 the plain version's time and the card's bound for the same work (K2 to
@@ -179,6 +196,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import hashlib
 import inspect
 import json
 import os
@@ -342,6 +360,115 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int(np.max(np.where(au > bu, au - bu, bu - au)))
 
 
+# phase state: the PoseidonG state machine at 2^PG_ROWS_BITS rows with
+# PG_INPUTS hashes (the rest of its slots zero padding), the state tree of
+# 2^TREE_KEYS_BITS keys then TREE_WRITES writes over it, and a
+# 2^SMT_KEYS_BITS-key tree against the binary SMT
+PG_ROWS_BITS = 23
+PG_INPUTS = 200_000
+TREE_KEYS_BITS = 20
+TREE_WRITES = 4096
+SMT_KEYS_BITS = 12
+
+
+def pg_inputs(seed: int, count: int, dev):
+    """`count` seeded PoseidonG inputs, of 12, 16 and 17 words in turn (the
+    17-word ones with permutation ids 1-4 in turn), the words p and
+    2^64 - 1 in two lanes of each of the first 24, their expected digests
+    from K1 on the card.  Returns the inputs, their 12-word states and
+    each input's permutation id (1 where it has none)."""
+    from merlin_zkevm_prover_tpu_torch.ops import goldilocks as gl
+    from merlin_zkevm_prover_tpu_torch.ops import poseidon_gl as pg
+
+    rng = np.random.default_rng(seed)
+    st = rng.integers(0, 1 << 64, (count, 12), dtype=np.uint64)
+    for i in range(min(24, count)):
+        st[i, i % 12] = gl.P
+        st[i, (i + 5) % 12] = (1 << 64) - 1
+    digest = gl.to_u64(pg.permute(gl.from_u64(st.T.copy(), dev))[:4]).T
+    width = np.array((12, 16, 17))[np.arange(count) % 3]
+    ids = np.where(width == 17, 1 + (np.arange(count) // 3) % 4, 1)
+    full = np.concatenate([st, digest, ids[:, None].astype(np.uint64)],
+                          axis=1).tolist()
+    return [row[:w] for row, w in zip(full, width.tolist())], st, ids
+
+
+def tree_case(seed: int, n_keys: int, n_writes: int):
+    """Seeded state-tree data: `n_keys` keys of 4 random words (one in
+    1,000 with a first word at or above p) with nonzero 256-bit values;
+    then `n_writes` writes over them: a third updates, a third deletes
+    (value 0) and the rest fresh keys."""
+    from merlin_zkevm_prover_tpu_torch.ops.goldilocks import P
+
+    rng = np.random.default_rng(seed)
+
+    def values(n):
+        raw = rng.bytes(32 * n)
+        return [int.from_bytes(raw[i:i + 32], "little") | 1
+                for i in range(0, 32 * n, 32)]
+
+    keys = rng.integers(0, 1 << 64, (n_keys, 4), dtype=np.uint64)
+    keys[::1000, 0] = np.uint64(P) + keys[::1000, 0] % np.uint64(1 << 20)
+    key_list = list(map(tuple, keys.tolist()))
+    pairs = dict(zip(key_list, values(n_keys)))
+    third = n_writes // 3
+    fresh = rng.integers(0, 1 << 64, (n_writes - 2 * third, 4),
+                         dtype=np.uint64)
+    writes = dict(zip(key_list[:third], values(third)))
+    writes.update(dict.fromkeys(key_list[third:2 * third], 0))
+    writes.update(zip(map(tuple, fresh.tolist()),
+                      values(n_writes - 2 * third)))
+    return pairs, writes
+
+
+def tree_builds(dev, permute, pairs: dict, writes: dict):
+    """Smt64.build of `pairs` from the empty tree, then of `writes` over
+    its root, hashing with `permute` (K1's wrapper or its plain version,
+    both on the card).  Returns one line a build: the root, the nodes it
+    wrote (distinct hashes, and a SHA-256 of their hashes and words in
+    write order), K1's launches and device ms from CUDA events around each
+    call, the host seconds of the build and of its pieces."""
+    from merlin_zkevm_prover_tpu_torch.hashdb import hashdb64 as h64
+    from merlin_zkevm_prover_tpu_torch.ops import poseidon_cuda as pc
+
+    events = []
+
+    def timed(x):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = permute(x)
+        b.record()
+        events.append((a, b, x.shape[1]))
+        return out
+
+    db = h64.Database64()
+    tree = h64.Smt64(db, dev)
+    tree.permute = timed
+    root, lines = (0, 0, 0, 0), []
+    for what, batch in (("keys", pairs), ("writes", writes)):
+        events.clear()
+        k1_before = pc.LAUNCHES["permute"]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        root = tree.build(batch, root)
+        torch.cuda.synchronize()
+        host_s = time.time() - t0
+        blk = db._blocks[-1]
+        lines.append({"build": what, "size": len(batch),
+                      "root": [str(v) for v in root], "nodes": len(blk),
+                      "nodes_sha256": hashlib.sha256(
+                          blk.hashes.tobytes() + blk.values.tobytes()
+                      ).hexdigest(),
+                      "k1_launches": pc.LAUNCHES["permute"] - k1_before,
+                      "permute_calls": len(events),
+                      "permutations": sum(n for _a, _b, n in events),
+                      "permute_device_ms": sum(a.elapsed_time(b)
+                                               for a, b, _n in events),
+                      "host_s": host_s, "spans": dict(tree.spans)})
+    return lines
+
+
 def edge_holds(dev) -> list:
     """final_holds' holds at the kernels' edges, which take no shape from
     the path: one 2^12-row BN254 tree against the host MerkleTreeBN128,
@@ -424,6 +551,10 @@ def main(kernel_holds_only: bool = False) -> int:
     from merlin_zkevm_prover_tpu_torch.snark import fflonk as ffl
     from merlin_zkevm_prover_tpu_torch.snark.setup import R1CS
     from merlin_zkevm_prover_tpu_torch.tools import fflonk_times as fft_
+    from merlin_zkevm_prover_tpu_torch.executor.sm import \
+        poseidon_g_executor as pge
+    from merlin_zkevm_prover_tpu_torch.hashdb import hashdb64 as h64
+    from merlin_zkevm_prover_tpu_torch.hashdb.hashdb import HashDB
 
     t_start = time.time()
     root_dir = os.path.dirname(os.path.abspath(__file__))
@@ -470,6 +601,7 @@ def main(kernel_holds_only: bool = False) -> int:
     def zero_counters() -> None:
         for counters in (pc.LAUNCHES, pc.NODE_HASH_LAUNCHES, ntt_cuda.LAUNCHES,
                          ntt_cuda.SUB_LAUNCHES, vm_cuda.LAUNCHES, ffk.LAUNCHES,
+                         pge.LAUNCHES,
                          *[c for cs in bn_counters.values() for c in cs]):
             for k in counters:
                 counters[k] = 0
@@ -613,7 +745,8 @@ def main(kernel_holds_only: bool = False) -> int:
     # ----------------------------------------------------------------- kernels
     checks = []
     worst = {"permute": 0, "linear_hash": 0, "node_hash": 0, "ntt_short": 0,
-             "ntt_block": 0, "ntt_block_short": 0, "vm_run": 0}
+             "ntt_block": 0, "ntt_block_short": 0, "vm_run": 0,
+             "round_trace": 0}
 
     check_clock = [time.time()]
 
@@ -963,8 +1096,11 @@ def main(kernel_holds_only: bool = False) -> int:
 
     if kernel_holds_only:
         plans = kernel_holds()
-        print(json.dumps({"cases": checks, "worst": worst, "vm_plans": plans}),
-              flush=True)
+        # phase state's tree builds again on K1's plain version
+        tree_plain = tree_builds(dev, pc.permute_plain, *tree_case(
+            2031, 1 << TREE_KEYS_BITS, TREE_WRITES))
+        print(json.dumps({"cases": checks, "worst": worst, "vm_plans": plans,
+                          "state_tree_plain": tree_plain}), flush=True)
         return 0
     # K2 at (2^18, 665) timed on the card alone (its hold is kernel_holds')
     x665 = edge_rows(rnd(H, 665))
@@ -996,6 +1132,133 @@ def main(kernel_holds_only: bool = False) -> int:
     emit({"phase": "permute", "shape": [12, B_PERM], "host_clock_ms": t_perm * 1e3,
           "columns_checked": len(cols), "launches": perm_launches})
     del perm_out
+
+    # ------------------------------------------------------------------- state
+    # (a) the PoseidonG state machine at 2^23 rows through its entry point:
+    # S1 once, its 19 columns held against the plain version on the card and
+    # its first and last 64 slots and dead rows against python ints
+    t_state = time.time()
+    n_pg = 1 << PG_ROWS_BITS
+    slots = n_pg // pge.SLOT_ROWS
+    pg_in, pg_states, pg_ids = pg_inputs(2030, PG_INPUTS, dev)
+    pg_ex = pge.PoseidonGExecutor()
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.time()
+    pg_cols = pg_ex.execute(pg_in, n_pg)
+    torch.cuda.synchronize()
+    pg_clock = time.time() - t0
+    pg_launches = dict(pge.LAUNCHES)
+    if pg_launches["round_trace"] != 1 or read_counters()["permute"]:
+        raise AssertionError(f"state: PoseidonG launches {pg_launches}")
+    st_dev = torch.zeros((12, slots), dtype=torch.int64, device=dev)
+    st_dev[:, :PG_INPUTS] = gl.from_u64((pg_states % np.uint64(P)).T.copy(),
+                                        dev)
+    check_clock[0] = time.time()
+    pg_trace = torch.stack([pg_cols[c] for c in pge.PoseidonGExecutor.COLUMNS[
+        :pge.TRACE_COLS]])
+    hold("round_trace", f"path ({n_pg} rows, {slots} slots)", pg_trace,
+         pge.round_trace_plain(st_dev, n_pg))
+    del pg_trace
+    for pid in (1, 2, 3):
+        want = torch.zeros(n_pg, dtype=torch.int64, device=dev)
+        want[torch.from_numpy(np.flatnonzero(pg_ids == pid) *
+                              pge.SLOT_ROWS).to(dev)] = 1
+        hold("round_trace", f"path result{pid}", pg_cols[f"result{pid}"], want)
+    # the raw words (p and 2^64 - 1 unreduced) through S1 and its plain
+    raw = gl.from_u64(pg_states[:4096].T.copy(), dev)
+    hold("round_trace", "raw words, 4096 slots, 127,000 rows",
+         pge.round_trace(raw, 127_000), pge.round_trace_plain(raw, 127_000))
+    del raw
+    ends = list(range(64)) + list(range(slots - 64, slots))
+    rows = np.array([k * pge.SLOT_ROWS + r for k in ends
+                     for r in range(pge.SLOT_ROWS)])
+    rows_dev = torch.from_numpy(rows).to(dev)
+    got = {c: gl.to_u64(v[rows_dev]) for c, v in pg_cols.items()}
+    for i, k in enumerate(ends):
+        st = [int(v) % P for v in pg_states[k]] if k < PG_INPUTS else [0] * 12
+        trace_rows = [st]
+        for r in range(pge.SLOT_ROWS - 1):
+            trace_rows.append(pge._round(trace_rows[-1], r))
+        for r in range(pge.SLOT_ROWS):
+            j = i * pge.SLOT_ROWS + r
+            row = [int(got[c][j]) for c in pge.PoseidonGExecutor.COLUMNS]
+            flags = [int(r == 0 and k < PG_INPUTS and pg_ids[k] == pid)
+                     for pid in (1, 2, 3)]
+            if row != trace_rows[r] + trace_rows[-1][:4] + flags:
+                raise AssertionError(f"state: PoseidonG slot {k} row {r} "
+                                     "differs from the python-int rounds")
+    dead = sum(int(v[slots * pge.SLOT_ROWS:].count_nonzero())
+               for v in pg_cols.values())
+    if dead:
+        raise AssertionError(f"state: {dead} nonzero words in the dead rows")
+    del pg_cols
+    bad_in = list(pg_in)
+    bad_in[4] = bad_in[4][:12] + [bad_in[4][12] ^ 1] + bad_in[4][13:]
+    try:
+        pg_ex.execute(bad_in, n_pg)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("state: a changed digest did not raise")
+    del bad_in
+    s1_ms = time_ms(lambda: pge.round_trace(st_dev, n_pg), 7)
+    s1_plain_ms = time_ms(lambda: pge.round_trace_plain(st_dev, n_pg), 2)
+    s1_bound = bound_ms(pge.TRACE_COLS * n_pg * 8 + 12 * slots * 8, 0,
+                        slots * PERM_IMAD32)
+    del st_dev
+    torch.cuda.empty_cache()
+    pg_line = {"n": n_pg, "inputs": PG_INPUTS, "slots": slots,
+               "execute_host_ms": pg_clock * 1e3, "launches": pg_launches,
+               "s1_ms": s1_ms, "s1_bound_ms": s1_bound[0],
+               "s1_bound_by": s1_bound[1], "s1_plain_ms": s1_plain_ms,
+               "python_int_slots": len(ends),
+               "dead_rows": n_pg - slots * pge.SLOT_ROWS,
+               "changed_digest_raised": True}
+    s1_entry = {
+        "name": "round_trace", "route": "cuda",
+        "source": "merlin_zkevm_prover_tpu_torch/csrc/poseidon_gl.cu",
+        "replaces": "merlin_zkevm_prover_tpu/executor/sm/"
+                    "poseidon_g_executor.py:25, 55-76 (python ints)",
+        "shape": [12, slots], "rows": n_pg, "launches": pg_launches[
+            "round_trace"], "max_abs_err": worst["round_trace"],
+        "ms": s1_ms, "plain_ms": s1_plain_ms, "bound_ms": s1_bound[0],
+        "bound_by": s1_bound[1], "library_ms": None,
+        "path": "executor.sm.poseidon_g_executor.PoseidonGExecutor.execute",
+        "execute_host_ms": pg_clock * 1e3}
+
+    # (b) the state tree: Smt64.build of 2^20 keys, then 4,096 writes over
+    # its root, on K1; the same builds on K1's plain version (on the card,
+    # in the kernel-holds process, while phase final builds its R1CS) must
+    # give the same roots and nodes (held at kernels_check)
+    zero_counters()
+    tree_k1 = tree_builds(dev, pc.permute, *tree_case(
+        2031, 1 << TREE_KEYS_BITS, TREE_WRITES))
+    for b in tree_k1:
+        if b["k1_launches"] != b["permute_calls"] or b["k1_launches"] < 3:
+            raise AssertionError(f"state: tree build {b}")
+    if read_counters()["permute"] != sum(b["k1_launches"] for b in tree_k1):
+        raise AssertionError("state: K1 launched outside the builds")
+    # (c) 2^12 keys: the root of the binary SMT's sequential sets (host)
+    small, _ = tree_case(2032, 1 << SMT_KEYS_BITS, 0)
+    t0 = time.time()
+    hdb, smt_root = HashDB(), (0, 0, 0, 0)
+    for k, v in small.items():
+        smt_root = hdb.set("b", 0, smt_root, k, v).new_root
+    smt_s = time.time() - t0
+    hdb.close()
+    k1_before = pc.LAUNCHES["permute"]
+    small_root = h64.Smt64(h64.Database64()).build(small)
+    if small_root != tuple(smt_root):
+        raise AssertionError("state: Smt64 root != the binary SMT's root")
+    tree_line = {"keys": 1 << TREE_KEYS_BITS, "writes": TREE_WRITES,
+                 "k1": tree_k1,
+                 "binary_smt": {"keys": len(small), "equal_roots": True,
+                                "sets_host_s": smt_s,
+                                "k1_launches": pc.LAUNCHES["permute"] -
+                                k1_before}}
+    emit({"phase": "state", "poseidon_g": pg_line, "tree": tree_line,
+          "seconds": time.time() - t_state})
 
     # ------------------------------------------------------------------ golden
     golden_out = []
@@ -1872,8 +2135,17 @@ def main(kernel_holds_only: bool = False) -> int:
     for k, err in kernel_res["worst"].items():
         worst[k] = max(worst[k], err)
     checks[:0] = kernel_res["cases"]
+    tree_plain = kernel_res["state_tree_plain"]
+    if len(tree_plain) != len(tree_k1):
+        raise AssertionError("state: the plain tree builds are missing")
+    for a, b in zip(tree_k1, tree_plain):
+        if [a[k] for k in ("root", "nodes", "nodes_sha256")] != \
+                [b[k] for k in ("root", "nodes", "nodes_sha256")] or \
+                b["k1_launches"]:
+            raise AssertionError(f"state: tree build {a} != plain {b}")
     emit({"phase": "kernels_check", "mismatches": 0,
           "cases": kernel_res["cases"], "vm_plans": kernel_res["vm_plans"],
+          "state_tree_plain": tree_plain,
           "linear_hash_2^18x665_ms": ms_lh665,
           "linear_hash_2^18x665_bound_ms": lh665_bound_ms})
     emit({"phase": "final_holds", "mismatches": 0, "holds": bn_holds,
@@ -1917,8 +2189,13 @@ def main(kernel_holds_only: bool = False) -> int:
           time_ms(lambda: pc.permute(perm_state), 7),
           time_ms(lambda: pc.permute_plain(perm_state), 2),
           perm_bound_ms(B_PERM, 2 * 12 * B_PERM * 8),
-          path="ops.poseidon_gl.permute")
+          path="ops.poseidon_gl.permute",
+          state_tree_launches=[b["k1_launches"] for b in tree_k1],
+          state_tree_device_ms=[b["permute_device_ms"] for b in tree_k1],
+          state_tree_bound_ms=[perm_bound_ms(b["permutations"], b[
+              "permutations"] * 24 * 8)[0] for b in tree_k1])
     del perm_state
+    entries.append(s1_entry)
 
     x = rnd(n_ext, wmax)
     check_clock[0] = time.time()

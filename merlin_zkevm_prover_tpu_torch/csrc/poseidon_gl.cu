@@ -42,6 +42,9 @@
 #define PG_LINEAR_HASH_THREADS 512
 #define PG_NODE_HASH_THREADS 128
 #define PG_NODE_GROUP_THREADS 128  // 8 groups of 16
+#define PG_TRACE_THREADS 128
+// Rows of one PoseidonG slot: the input and the state after each round.
+#define PG_SLOT_ROWS (PG_ROUNDS + 1)
 
 // Row r holds the constants added before round r; row PG_ROUNDS is zero (no
 // constant follows the last round).  Canonical.
@@ -235,6 +238,55 @@ pg_permute_kernel(const uint64_t* __restrict__ state, uint64_t* __restrict__ out
     pg_permute_lazy(s);
 #pragma unroll
     for (int i = 0; i < PG_WIDTH; ++i) out[i * b + k] = gl_canon(s[i]);
+}
+
+// S1, the PoseidonG state machine's round trace (no Pallas counterpart: the
+// reference fills it in python ints, executor/sm/poseidon_g_executor.py:25,
+// 55-76).  state: (12, S) lane-major words in [0, 2^64), slot k's word i at
+// i * S + k.  out: 16 columns of n words, column c at c * n; slot k owns rows
+// k * 31 .. k * 31 + 30.  Row 0 holds the input reduced mod p; row r + 1 the
+// canonical state after round r, M sbox(s + RC[r]); columns 12..15 hold row
+// 30's first four words (the digest) on each of the slot's 31 rows.  The
+// caller zeroes the rows past 31 * S.
+//
+// K1's round functions with the zero constant row (PG_RC row PG_ROUNDS) in
+// the linear layer, so that the state written after round r does not carry
+// RC[r + 1]; the next round adds its own constant first.  One thread per
+// slot: the reads are coalesced as in K1, but a warp's stores of one row land
+// 31 words apart (one sector each).  The work is bound by the bytes written
+// (16 words a row), not by the 118 S-boxes a slot.
+__global__ void __launch_bounds__(PG_TRACE_THREADS)
+pg_trace_kernel(const uint64_t* __restrict__ state, uint64_t* __restrict__ out,
+                long long slots, long long n) {
+    long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= slots) return;
+    uint64_t* rows = out + k * PG_SLOT_ROWS;
+    const uint64_t* zero_rc = PG_RC + PG_ROUNDS * PG_WIDTH;
+    uint64_t s[PG_WIDTH];
+#pragma unroll
+    for (int i = 0; i < PG_WIDTH; ++i) {
+        s[i] = gl_canon(state[i * slots + k]);
+        rows[i * n] = s[i];
+    }
+#pragma unroll 1
+    for (int r = 0; r < PG_ROUNDS; ++r) {
+#pragma unroll
+        for (int i = 0; i < PG_WIDTH; ++i)
+            s[i] = gl_add_lazy(s[i], PG_RC[r * PG_WIDTH + i]);
+        if (r < PG_HALF_FULL || r >= PG_HALF_FULL + PG_PARTIAL)
+            pg_full_round(s, zero_rc);
+        else
+            pg_partial_round(s, zero_rc);
+#pragma unroll
+        for (int i = 0; i < PG_WIDTH; ++i) {
+            s[i] = gl_canon(s[i]);
+            rows[i * n + r + 1] = s[i];
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < PG_CAP; ++h)
+#pragma unroll 1
+        for (int r = 0; r < PG_SLOT_ROWS; ++r) rows[(PG_WIDTH + h) * n + r] = s[h];
 }
 
 // rows: (H, W) row-major words in [0, 2^64), W > 4.  out: (H, 4) canonical.
@@ -443,6 +495,19 @@ extern "C" int merlin_permute(const void* state, void* out, long long b,
     long long blocks = (b + threads - 1) / threads;
     pg_permute_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint64_t*)state, (uint64_t*)out, b);
+    return (int)cudaGetLastError();
+}
+
+// state: (12, slots) lane-major; out: 16 columns of n >= 31 * slots words.
+extern "C" int merlin_poseidon_trace(const void* state, void* out,
+                                     long long slots, long long n,
+                                     void* stream) {
+    if (slots <= 0) return 0;
+    if (n < slots * PG_SLOT_ROWS) return (int)cudaErrorInvalidValue;
+    const int threads = PG_TRACE_THREADS;
+    long long blocks = (slots + threads - 1) / threads;
+    pg_trace_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint64_t*)state, (uint64_t*)out, slots, n);
     return (int)cudaGetLastError();
 }
 

@@ -22,10 +22,11 @@ from ..stark.air import AIR
 
 def build_wide_air(n_bits: int = 4, n_base: int = 150, n_sums: int = 40,
                    terms: int = 40, seed: int = 9,
-                   device="cpu") -> Tuple[AIR, np.ndarray]:
+                   device=None) -> Tuple[AIR, np.ndarray]:
     """Returns (air, satisfying trace (N, n_base + n_sums)): each sum column
     equals the sum of `terms` seeded products of two base columns.  The
-    trace's field arithmetic runs on `device`."""
+    trace's field arithmetic runs on `device` (None: the card, raising
+    when there is none; "cpu": the CPU)."""
     air = AIR("wide", n_bits)
     rng = np.random.default_rng(seed)
     base = [air.committed(f"a{j}") for j in range(n_base)]

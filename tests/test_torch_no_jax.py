@@ -61,7 +61,15 @@ def test_port_has_every_expected_module():
                 "snark.pairing", "snark.binfile", "recursion.final_circuit",
                 "recursion.final", "tools.bn254_times", "utils.keccak",
                 "snark.fflonk", "snark.r1cs_to_plonk",
-                "ops.bn254_fflonk_cuda", "tools.fflonk_times"):
+                "ops.bn254_fflonk_cuda", "tools.fflonk_times",
+                "utils.config", "utils.watchdog", "native", "ops.secp256k1",
+                "executor", "executor.ecrecover", "hashdb", "hashdb.database",
+                "hashdb.smt", "hashdb.state_manager", "hashdb.hashdb",
+                "hashdb.hashdb64", "executor.sm",
+                "executor.sm.poseidon_g_executor",
+                "executor.sm.arith_executor", "executor.sm.binary_executor",
+                "executor.sm.memory_executor",
+                "executor.sm.mem_align_executor"):
         assert f"merlin_zkevm_prover_tpu_torch.{sub}" in names
 
 

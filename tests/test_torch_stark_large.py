@@ -238,7 +238,7 @@ def wide_air(n_bits=4, n_base=150, n_sums=40, terms=40, seed=9):
 
 
 def test_build_wide_air_equals_python_ints():
-    air, trace = build_wide_air()
+    air, trace = build_wide_air(device="cpu")
     ref_air, ref_trace = wide_air()
     np.testing.assert_array_equal(trace, ref_trace)
     assert compile_air(air, **SETTINGS).step42ns == \
@@ -251,7 +251,7 @@ def test_wide_circuit_takes_the_large_path_by_default(monkeypatch):
     small path's and verifies."""
     for k in LARGE_PATH:
         monkeypatch.delenv(k, raising=False)
-    air, trace = build_wide_air()
+    air, trace = build_wide_air(device="cpu")
     info = compile_air(air, **SETTINGS)
     const = np.zeros((air.n, 0), dtype=np.uint64)
     prover = StarkProver(info, const, device=CPU)

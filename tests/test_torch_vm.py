@@ -603,7 +603,8 @@ def _rewrite_case(name, step):
         info = compile_air(build_smoke_air(n_bits=4, seed=42)[0], **SETTINGS)
     else:
         from merlin_zkevm_prover_tpu_torch.models.wide import build_wide_air
-        info = compile_air(build_wide_air(n_bits=3)[0], **SETTINGS)
+        info = compile_air(build_wide_air(n_bits=3, device="cpu")[0],
+                           **SETTINGS)
     prog = STEPS[step](vm, info)
     n = info.n if step < 4 else info.n_ext
     secs = _inplace_sections(info, prog.sections, n, 100 + step)
