@@ -531,6 +531,7 @@ def main(kernel_holds_only: bool = False) -> int:
     from merlin_zkevm_prover_tpu_torch.recursion import recursive as rec
     from merlin_zkevm_prover_tpu_torch.recursion.gates import Circuit
     from merlin_zkevm_prover_tpu_torch.recursion.plonk import circuit_to_air
+    from merlin_zkevm_prover_tpu_torch.tools import poseidon_times
     from merlin_zkevm_prover_tpu_torch.tools import vm_times as vmt
     from merlin_zkevm_prover_tpu_torch.utils.timer import TimerLog
     from merlin_zkevm_prover_tpu_torch.utils.timer import device_time_ms as time_ms
@@ -1170,6 +1171,14 @@ def main(kernel_holds_only: bool = False) -> int:
     hold("round_trace", "raw words, 4096 slots, 127,000 rows",
          pge.round_trace(raw, 127_000), pge.round_trace_plain(raw, 127_000))
     del raw
+    # S1 at the edges of its geometry (poseidon_times.s1_edge_cases): G
+    # slots a block at the main path's run, S = 1, G - 1, G, G + 1, 2G + 1;
+    # n = 31 S, 31 S + 1 and an odd n past a line; the library's own plan
+    # and the main path's run
+    for what, got_, want_ in poseidon_times.s1_edge_cases(dev, slots):
+        hold("round_trace", what, got_, want_)
+    del got_, want_
+    pg_plan = pge.trace_plan(slots, dev)
     ends = list(range(64)) + list(range(slots - 64, slots))
     rows = np.array([k * pge.SLOT_ROWS + r for k in ends
                      for r in range(pge.SLOT_ROWS)])
@@ -1212,7 +1221,7 @@ def main(kernel_holds_only: bool = False) -> int:
                "execute_host_ms": pg_clock * 1e3, "launches": pg_launches,
                "s1_ms": s1_ms, "s1_bound_ms": s1_bound[0],
                "s1_bound_by": s1_bound[1], "s1_plain_ms": s1_plain_ms,
-               "python_int_slots": len(ends),
+               "python_int_slots": len(ends), "plan": pg_plan,
                "dead_rows": n_pg - slots * pge.SLOT_ROWS,
                "changed_digest_raised": True}
     s1_entry = {

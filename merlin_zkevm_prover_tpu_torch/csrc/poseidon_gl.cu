@@ -42,7 +42,9 @@
 #define PG_LINEAR_HASH_THREADS 512
 #define PG_NODE_HASH_THREADS 128
 #define PG_NODE_GROUP_THREADS 128  // 8 groups of 16
-#define PG_TRACE_THREADS 128
+// S1: warps a block.  Each warp runs 32 runs of slots, one a lane, and keeps
+// its rows in pools of its own in shared memory (pg_trace_kernel).
+#define PG_TRACE_WARPS 4
 // Rows of one PoseidonG slot: the input and the state after each round.
 #define PG_SLOT_ROWS (PG_ROUNDS + 1)
 
@@ -243,50 +245,254 @@ pg_permute_kernel(const uint64_t* __restrict__ state, uint64_t* __restrict__ out
 // S1, the PoseidonG state machine's round trace (no Pallas counterpart: the
 // reference fills it in python ints, executor/sm/poseidon_g_executor.py:25,
 // 55-76).  state: (12, S) lane-major words in [0, 2^64), slot k's word i at
-// i * S + k.  out: 16 columns of n words, column c at c * n; slot k owns rows
-// k * 31 .. k * 31 + 30.  Row 0 holds the input reduced mod p; row r + 1 the
-// canonical state after round r, M sbox(s + RC[r]); columns 12..15 hold row
-// 30's first four words (the digest) on each of the slot's 31 rows.  The
-// caller zeroes the rows past 31 * S.
+// i * S + k.  out: 16 columns of n >= 31 S words, column c at c * n; slot k
+// owns rows k * 31 .. k * 31 + 30.  Row 0 holds the input reduced mod p; row
+// r + 1 the canonical state after round r, M sbox(s + RC[r]); columns 12..15
+// hold row 30's first four words (the digest) on each of the slot's 31 rows;
+// rows 31 S .. n - 1 are zero (the kernel writes them).
 //
-// K1's round functions with the zero constant row (PG_RC row PG_ROUNDS) in
-// the linear layer, so that the state written after round r does not carry
-// RC[r + 1]; the next round adds its own constant first.  One thread per
-// slot: the reads are coalesced as in K1, but a warp's stores of one row land
-// 31 words apart (one sector each).  The work is bound by the bytes written
-// (16 words a row), not by the 118 S-boxes a slot.
+// Bound: the bytes, 16 words written a row and 12 read a slot (the 118
+// S-boxes a slot take a tenth of that time).  The compute is K1's: one lane
+// a slot, the 12-word state in registers, K1's round functions with the zero
+// constant row (PG_RC row PG_ROUNDS) in the linear layer, so that the state
+// written after round r does not carry RC[r + 1]; each round adds its own
+// constant first.  Each word is canonicalised once, where it is staged.
+//
+// The stores.  Stored as computed, a warp's 32 words of one row land 31
+// words apart, and each 128-B line of a column fills over 16 rounds while
+// every resident thread keeps a dozen lines open: 1 GB of part-written
+// lines at 2^23 rows against a 50 MB L2.  Here each lane runs a contiguous
+// run of slots one after the other, so that its rows in each column are one
+// contiguous stream, and stages each row in shared memory until the row's
+// line (16 rows, row & 15 its place) is complete; then its half-warp stores
+// the line: 16 consecutive lanes on its 16 consecutive words, both halves
+// together (two lines a store), whole lines where n is a multiple of 16.
+// The digest columns are stored at each slot's end, from the 4 digest words
+// of the slot and of the one before it, shuffled from the lane that owns
+// them.  A line shared by two streams is stored in two parts, one by each
+// lane; the last stream's last line is stored with its dead rows as zeros,
+// and the dead rows after it by every thread at the end.
+//
+// The pools.  A ring of 16 rows a column for each lane (1.5 KB) would leave
+// room for 4 warps an SM, too few to hide a round's latency.  But a run is
+// odd, so the 16 lanes of a half-warp start their streams on rows 31 run
+// apart, distinct mod 16: at each step (one row for every lane) each lane
+// is at another place f of its open line, one lane's line completes and
+// another's starts.  Row f of a line lives 16 - f steps (until its line is
+// stored), so a pool of 16 - f entries holds row f for the whole half-warp,
+// the entry written at step tau being tau mod (16 - f): 136 words a column
+// where 16 rings take 256.  Two columns' pools fill a 17 x 16 array of
+// words: the even column's entry s of row f at 16 s + f, the odd column's at
+// 16 (16 - s) + 15 - f (the two triangles s + f <= 15 and s + f >= 16 do
+// not meet).  The lanes of a half-warp write, and the lanes of a store read,
+// 16 distinct rows f, so each 64-bit access takes 16 distinct bank pairs
+// (tests/test_torch_sm_executors.py counts them).  816 bytes a lane: 8
+// warps an SM.
+#define PG_LINE 16                                   // words in a 128-B line
+#define PG_TRI_WORDS (PG_LINE * (PG_LINE + 1))       // two columns' pools
+#define PG_HALF_WORDS (PG_WIDTH / 2 * PG_TRI_WORDS)  // a half-warp's pools
+#define PG_TRACE_THREADS (32 * PG_TRACE_WARPS)
+#define PG_TRACE_SMEM ((size_t)PG_TRACE_WARPS * 2 * PG_HALF_WORDS * 8)
+
+extern __shared__ __align__(16) uint64_t pg_trace_smem[];
+
+// The word of entry s of row f of a column's pool in its pair's array.
+__device__ __forceinline__ int pg_pool_word(int s, int f, int odd) {
+    return odd ? PG_LINE * (PG_LINE - s) + (PG_LINE - 1 - f) : PG_LINE * s + f;
+}
+
+// x mod m for 0 <= x < 2^22, 1 <= m <= 16, rm = 1 / m (a float product and
+// one correction instead of an integer division).
+__device__ __forceinline__ int pg_mod(int x, int m, float rm) {
+    int r = x - m * __float2int_rz((float)x * rm);
+    r += r < 0 ? m : 0;
+    return r >= m ? r - m : r;
+}
+
 __global__ void __launch_bounds__(PG_TRACE_THREADS)
 pg_trace_kernel(const uint64_t* __restrict__ state, uint64_t* __restrict__ out,
-                long long slots, long long n) {
-    long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= slots) return;
-    uint64_t* rows = out + k * PG_SLOT_ROWS;
-    const uint64_t* zero_rc = PG_RC + PG_ROUNDS * PG_WIDTH;
-    uint64_t s[PG_WIDTH];
+                long long slots, long long n, int run) {
+    const int lane = threadIdx.x & 31;
+    const int e = lane & (PG_LINE - 1);  // a store's row in its line
+    const int odd = lane >> 4;           // the lane's half-warp; in a store,
+                                         // the odd column of each pair
+    const unsigned half = odd ? 0xFFFF0000u : 0x0000FFFFu;
+    const float re = 1.0f / (PG_LINE - e);
+    const long long t = (long long)blockIdx.x * PG_TRACE_THREADS + threadIdx.x;
+    const long long k0 = t * run;  // the lane's first slot
+    const int rows = run * PG_SLOT_ROWS;  // a stream's rows
+    // this half-warp's pools
+    uint64_t* pool = pg_trace_smem + (threadIdx.x >> 4) * PG_HALF_WORDS;
+    const long long s_rows = slots * PG_SLOT_ROWS;
+    // 12 state words of row `at` from the pools (entry sl of row e), or
+    // zeros for a dead row
+    auto put_line = [&](long long at, bool dead, int sl) {
+        const int w[2] = {pg_pool_word(sl, e, 0), pg_pool_word(sl, e, 1)};
+        uint64_t* o = out + at;
 #pragma unroll
-    for (int i = 0; i < PG_WIDTH; ++i) {
-        s[i] = gl_canon(state[i * slots + k]);
-        rows[i * n] = s[i];
-    }
+        for (int c = 0; c < PG_WIDTH; ++c)
+            o[c * n] = dead ? 0 : pool[(c >> 1) * PG_TRI_WORDS + w[c & 1]];
+    };
+    auto put_digest = [&](long long at, int h, uint64_t v) {
+        out[(PG_WIDTH + h) * n + at] = v;
+    };
+    if ((t - lane) * run < slots) {  // warp-uniform: the warp has a slot
+        const uint64_t* zero_rc = PG_RC + PG_ROUNDS * PG_WIDTH;
+        // this lane's stream: rows [lo, hi); a lane j of its half-warp
+        // starts at lo + (j - lane) rows, its stream ends at the same
+        // distance or at 31 S
+        const long long lo = k0 * PG_SLOT_ROWS;
+        const long long hi = max(lo, min(lo + rows, s_rows));
+        // the half's first stream start mod 16, and 1 / rows mod 16 (rows
+        // is odd: its inverse is rows^7)
+        const int h0 = (int)((lo - (long long)e * rows) & (PG_LINE - 1));
+        const int r16 = rows & (PG_LINE - 1);
+        const int inv = r16 * r16 * r16 * r16 * r16 * r16 * r16 & (PG_LINE - 1);
+        uint64_t s[PG_WIDTH], prev[PG_CAP] = {0, 0, 0, 0};
 #pragma unroll 1
-    for (int r = 0; r < PG_ROUNDS; ++r) {
+        for (int i = 0; i < run; ++i) {
+            const long long base = lo + (long long)i * PG_SLOT_ROWS;
+            const bool live = base < hi;
 #pragma unroll
-        for (int i = 0; i < PG_WIDTH; ++i)
-            s[i] = gl_add_lazy(s[i], PG_RC[r * PG_WIDTH + i]);
-        if (r < PG_HALF_FULL || r >= PG_HALF_FULL + PG_PARTIAL)
-            pg_full_round(s, zero_rc);
-        else
-            pg_partial_round(s, zero_rc);
+            for (int j = 0; j < PG_WIDTH; ++j)
+                s[j] = live ? gl_canon(state[j * slots + k0 + i]) : 0;
+#pragma unroll 1
+            for (int r = 0; r < PG_SLOT_ROWS; ++r) {
+                if (r) {
+                    // round r - 1: s <- M sbox(s + RC[r - 1]), canonical
 #pragma unroll
-        for (int i = 0; i < PG_WIDTH; ++i) {
-            s[i] = gl_canon(s[i]);
-            rows[i * n + r + 1] = s[i];
+                    for (int j = 0; j < PG_WIDTH; ++j)
+                        s[j] = gl_add_lazy(s[j], PG_RC[(r - 1) * PG_WIDTH + j]);
+                    if (r - 1 < PG_HALF_FULL || r - 1 >= PG_HALF_FULL + PG_PARTIAL)
+                        pg_full_round(s, zero_rc);
+                    else
+                        pg_partial_round(s, zero_rc);
+#pragma unroll
+                    for (int j = 0; j < PG_WIDTH; ++j) s[j] = gl_canon(s[j]);
+                }
+                const int tau = i * PG_SLOT_ROWS + r;  // the step
+                const int f = (int)((base + r) & (PG_LINE - 1));
+                if (live) {
+                    const int sl = pg_mod(tau, PG_LINE - f,
+                                          __fdividef(1.0f, (float)(PG_LINE - f)));
+                    const int w[2] = {pg_pool_word(sl, f, 0), pg_pool_word(sl, f, 1)};
+#pragma unroll
+                    for (int c = 0; c < PG_WIDTH; ++c)
+                        pool[(c >> 1) * PG_TRI_WORDS + w[c & 1]] = s[c];
+                }
+                __syncwarp();
+                // The lines that this row completes: each half-warp stores
+                // those of its lanes, both halves together, two lines a
+                // store.  At every step one lane of a half is at row 15 of
+                // its line (the phases are distinct): j15, found by
+                // arithmetic.  Its line lies inside its stream but in the
+                // stream's first 15 steps; those first lines, and the
+                // part-lines at a stream's end, take the general loop.
+                {
+                    const int j15 = ((PG_LINE - 1 - tau - h0) * inv) & (PG_LINE - 1);
+                    const long long src_lo = lo + (long long)(j15 - e) * rows;
+                    if (tau >= PG_LINE - 1 && src_lo + i * PG_SLOT_ROWS < s_rows)
+                        put_line(src_lo + tau - (PG_LINE - 1) + e, false,
+                                 pg_mod(tau + 1, PG_LINE - e, re));
+                }
+                // (a stream's first line ends in its first 15 steps, and a
+                // stream ends on a slot's last row)
+                unsigned mh = 0;
+                if (tau < PG_LINE - 1 || r == PG_SLOT_ROWS - 1)
+                    mh = __ballot_sync(0xFFFFFFFFu,
+                                       live && (f == PG_LINE - 1 ? tau < PG_LINE - 1
+                                                                 : base + r + 1 == hi)) &
+                         half;
+                while (__any_sync(0xFFFFFFFFu, mh)) {
+                    if (!mh) continue;
+                    const int src = __ffs(mh) - 1;
+                    mh &= mh - 1;
+                    const long long src_lo = lo + (long long)(src - lane) * rows;
+                    const long long src_hi = min(src_lo + rows, s_rows);
+                    const int fs = (int)((src_lo + tau) & (PG_LINE - 1));
+                    const long long at = src_lo + tau - fs + e;  // this lane's row
+                    if (at < src_lo || at >= n || (at >= src_hi && at < s_rows))
+                        continue;  // another stream's row, or none
+                    // row e of the line was staged at step tau - fs + e
+                    const bool dead = at >= src_hi;
+                    put_line(at, dead, dead ? 0 : pg_mod(tau - fs + e, PG_LINE - e, re));
+                }
+                __syncwarp();
+            }
+            // The digest: row 30's first four words.  Store the digest lines
+            // that end in this slot and, at the stream's end, the line that
+            // holds its last row: lines q = 0, 1, 2 from the first line end
+            // at or after the slot's first row, each half-warp its own.  The
+            // loop over the 16 lanes of a half stores its lines 0 and 1
+            // where they lie inside the stream; the general loop the first
+            // slot's line 0 and the stream's last line.
+            uint64_t cur[PG_CAP];
+#pragma unroll
+            for (int h = 0; h < PG_CAP; ++h) cur[h] = s[h];
+            const int x1 = PG_LINE - 1 - (int)(base & (PG_LINE - 1));  // + base
+#pragma unroll 1
+            for (int jj = 0; jj < PG_LINE; ++jj) {
+                const int src = (lane & PG_LINE) + jj;
+                const long long sb = lo + (long long)(jj - e) * rows + i * PG_SLOT_ROWS;
+                const int sx1 = PG_LINE - 1 - (int)(sb & (PG_LINE - 1));
+                const bool on = sb < s_rows;
+                uint64_t vp[PG_CAP], vc[PG_CAP];
+#pragma unroll
+                for (int h = 0; h < PG_CAP; ++h) {
+                    vp[h] = __shfl_sync(0xFFFFFFFFu, prev[h], src);
+                    vc[h] = __shfl_sync(0xFFFFFFFFu, cur[h], src);
+                }
+                if (on && (i > 0 || sx1 == PG_LINE - 1)) {
+                    const long long at = sb + sx1 - (PG_LINE - 1) + e;
+                    const bool before = e < PG_LINE - 1 - sx1;  // at < sb
+#pragma unroll
+                    for (int h = 0; h < PG_CAP; ++h)
+                        put_digest(at, h, before ? vp[h] : vc[h]);
+                }
+                if (on && sx1 + PG_LINE <= PG_SLOT_ROWS - 1) {
+#pragma unroll
+                    for (int h = 0; h < PG_CAP; ++h)
+                        put_digest(sb + sx1 + 1 + e, h, vc[h]);
+                }
+            }
+            const bool second = x1 + PG_LINE <= PG_SLOT_ROWS - 1;
+            const bool tail = live && base + PG_SLOT_ROWS == hi &&
+                              ((base + PG_SLOT_ROWS) & (PG_LINE - 1)) != 0;
+#pragma unroll 1
+            for (int q = 0; q < 3 && __any_sync(0xFFFFFFFFu, live && (i == 0 || tail));
+                 ++q) {
+                unsigned mh = __ballot_sync(
+                    0xFFFFFFFFu, live && ((q == 0 && i == 0 && x1 != PG_LINE - 1) ||
+                                          (tail && q == 1 + second))) & half;
+                while (__any_sync(0xFFFFFFFFu, mh)) {
+                    const bool act = mh != 0;
+                    const int src = act ? __ffs(mh) - 1 : lane;
+                    mh &= mh - 1;
+                    const long long src_lo = lo + (long long)(src - lane) * rows;
+                    const long long src_hi = min(src_lo + rows, s_rows);
+                    const long long sb = src_lo + (long long)i * PG_SLOT_ROWS;
+                    const long long at = sb + (PG_LINE - 1 - (int)(sb & (PG_LINE - 1))) +
+                                         PG_LINE * q - (PG_LINE - 1) + e;
+                    const bool ok = act && at >= src_lo && at < n &&
+                                    (at < src_hi || at >= s_rows);
+#pragma unroll
+                    for (int h = 0; h < PG_CAP; ++h) {
+                        const uint64_t vp = __shfl_sync(0xFFFFFFFFu, prev[h], src);
+                        const uint64_t vc = __shfl_sync(0xFFFFFFFFu, cur[h], src);
+                        if (ok) put_digest(at, h, at >= src_hi ? 0 : at < sb ? vp : vc);
+                    }
+                }
+            }
+#pragma unroll
+            for (int h = 0; h < PG_CAP; ++h) prev[h] = cur[h];
         }
     }
-#pragma unroll
-    for (int h = 0; h < PG_CAP; ++h)
-#pragma unroll 1
-        for (int r = 0; r < PG_SLOT_ROWS; ++r) rows[(PG_WIDTH + h) * n + r] = s[h];
+    // the dead rows after the line that holds row 31 S - 1
+    const long long z0 = min(n, (s_rows + PG_LINE - 1) & ~(long long)(PG_LINE - 1));
+    const long long dead = n - z0;
+    const long long all = (long long)gridDim.x * PG_TRACE_THREADS;
+    for (long long k = t; k < dead * (PG_WIDTH + PG_CAP); k += all)
+        out[(k / dead) * n + z0 + k % dead] = 0;
 }
 
 // rows: (H, W) row-major words in [0, 2^64), W > 4.  out: (H, 4) canonical.
@@ -498,16 +704,58 @@ extern "C" int merlin_permute(const void* state, void* out, long long b,
     return (int)cudaGetLastError();
 }
 
-// state: (12, slots) lane-major; out: 16 columns of n >= 31 * slots words.
+// S1's launch for `slots` slots: thread t runs slots [t * run, (t + 1) *
+// run), `run` odd (the pools need it) and below 2^22 / 31 (pg_mod's range);
+// `run` 0 takes the fewest slots a lane that lets every lane be resident on
+// the current device at once, made odd.  plan: the run, the blocks of
+// PG_TRACE_THREADS that cover every slot, PG_TRACE_THREADS.
+static cudaError_t pg_trace_plan(long long slots, int run, long long* plan) {
+    cudaError_t e = cudaFuncSetAttribute(
+        pg_trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)PG_TRACE_SMEM);
+    if (e != cudaSuccess) return e;
+    if (slots <= 0 || run < 0) return cudaErrorInvalidValue;
+    if (run == 0) {
+        int per_sm = 0, dev = 0, sms = 0;
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, pg_trace_kernel, PG_TRACE_THREADS, PG_TRACE_SMEM);
+        if (e != cudaSuccess) return e;
+        e = cudaGetDevice(&dev);
+        if (e != cudaSuccess) return e;
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (e != cudaSuccess) return e;
+        if (per_sm < 1) return cudaErrorInvalidConfiguration;
+        const long long lanes = (long long)PG_TRACE_THREADS * per_sm * sms;
+        const long long r = (slots + lanes - 1) / lanes;
+        if (r >= (1 << 22)) return cudaErrorInvalidValue;
+        run = (int)(r + 1 - r % 2);
+    }
+    if (run % 2 == 0 || (long long)run * PG_SLOT_ROWS + PG_LINE > (1 << 22))
+        return cudaErrorInvalidValue;
+    plan[0] = run;
+    plan[1] = ((slots + run - 1) / run + PG_TRACE_THREADS - 1) / PG_TRACE_THREADS;
+    plan[2] = PG_TRACE_THREADS;
+    return cudaSuccess;
+}
+
+extern "C" int merlin_poseidon_trace_plan(long long slots, int run,
+                                          long long* plan) {
+    return (int)pg_trace_plan(slots, run, plan);
+}
+
+// state: (12, slots) lane-major; out: 16 columns of n >= 31 * slots words;
+// run as in pg_trace_plan (0: its choice).
 extern "C" int merlin_poseidon_trace(const void* state, void* out,
-                                     long long slots, long long n,
+                                     long long slots, long long n, int run,
                                      void* stream) {
-    if (slots <= 0) return 0;
-    if (n < slots * PG_SLOT_ROWS) return (int)cudaErrorInvalidValue;
-    const int threads = PG_TRACE_THREADS;
-    long long blocks = (slots + threads - 1) / threads;
-    pg_trace_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const uint64_t*)state, (uint64_t*)out, slots, n);
+    if (slots <= 0 || n < slots * PG_SLOT_ROWS) return (int)cudaErrorInvalidValue;
+    long long plan[3];
+    cudaError_t e = pg_trace_plan(slots, run, plan);
+    if (e != cudaSuccess) return (int)e;
+    pg_trace_kernel<<<(unsigned)plan[1], PG_TRACE_THREADS, PG_TRACE_SMEM,
+                      (cudaStream_t)stream>>>((const uint64_t*)state,
+                                              (uint64_t*)out, slots, n,
+                                              (int)plan[0]);
     return (int)cudaGetLastError();
 }
 

@@ -6,18 +6,33 @@ hash0..3 pin the result across the slot.  Unused rows repeat the
 all-zeros-input round trace (reference :227-292).
 
 The JAX package fills these columns in python ints, one permutation and 30
-rounds a hash (``executor/sm/poseidon_g_executor.py:55-76``).  Here the
+rounds a hash (``executor/sm/poseidon_g_executor.py:25, 55-76``).  Here the
 whole trace is one launch of kernel S1 (``csrc/poseidon_gl.cu``
 ``pg_trace_kernel``) over every slot at once, the padding slots launched as
-inputs of zeros; ``round_trace_plain`` is its plain PyTorch version (the 30
-rounds over all slots at once).  ``round_trace`` takes the plain version
-only for a tensor on the CPU; on a CUDA tensor it launches S1 or raises.
-``LAUNCHES`` counts S1's launches and nothing else.  The result flags are
-a scatter, the digest check one comparison on the device.
+inputs of zeros, the dead rows zeroed by the same launch;
+``round_trace_plain`` is its plain PyTorch version (the 30 rounds over all
+slots at once).  ``round_trace`` takes the plain version only for a tensor
+on the CPU; on a CUDA tensor it launches S1 or raises.  ``LAUNCHES`` counts
+S1's launches and nothing else.  The result flags are a scatter, the digest
+check one comparison on the device.
+
+S1 is bound by its bytes: 16 words written a row and 12 read a slot (1.07
+GB at ``2^23`` rows, its 118 S-boxes a slot a tenth of that time).  Its
+stores decide its speed: a slot writes 31 rows a column, so rows stored as
+computed land 31 words apart across a warp and fill each 128-B line over 16
+rounds, with a gigabyte of lines open at once.  S1 gives each lane a
+contiguous run of ``run`` slots (``trace_plan``: as few as lets every lane
+be resident at once, and odd), stages each row in shared memory until its
+line is complete and lets its warp store the line: consecutive lanes on
+consecutive words, whole lines.  The rows wait in pools that the 16 lanes
+of a half-warp share (816 bytes a lane instead of a 1.5 KB ring, so 8 warps
+fit an SM); ``pool_word`` is where a row waits, and the tests count the
+bank conflicts of those accesses.
 """
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 from typing import Dict, List, Sequence, Union
 
@@ -41,6 +56,7 @@ SLOT_ROWS = N_FULL_ROUNDS + N_PARTIAL_ROUNDS + 1  # 31
 TRACE_COLS = WIDTH + CAPACITY                     # 12 state + 4 digest words
 
 LAUNCHES = {"round_trace": 0}
+LINE = 16  # 64-bit words in a 128-B line
 
 
 def _round(state: List[int], r: int) -> List[int]:
@@ -93,6 +109,26 @@ def round_trace_plain(states: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
+def pool_word(s: int, f: int, odd: int) -> int:
+    """S1's pools (``csrc/poseidon_gl.cu`` ``pg_pool_word``): the word, in
+    a column pair's 17 x 16 array, of entry ``s`` (in ``[0, 16 - f)``) of
+    the pool that holds row ``f`` of a line, for the pair's even or odd
+    column.  A row staged at step ``tau`` takes entry ``tau % (16 - f)``."""
+    return LINE * (LINE - s) + LINE - 1 - f if odd else LINE * s + f
+
+
+def trace_plan(slots: int, device: torch.device, run: int = 0) -> Dict[str, int]:
+    """S1's launch for `slots` >= 1 slots on `device` (the card), as the
+    library plans it (``csrc/poseidon_gl.cu`` ``pg_trace_plan``): `run`
+    slots a lane (odd; 0: the fewest that lets every lane be resident at
+    once, made odd), the blocks that cover them and their threads."""
+    buf = (ctypes.c_longlong * 3)()
+    with torch.cuda.device(device):
+        cuda_build.check(poseidon_cuda._lib().merlin_poseidon_trace_plan(
+            slots, run, buf), "round_trace plan")
+    return dict(zip(("run", "blocks", "threads"), buf))
+
+
 def round_trace(states: torch.Tensor, n: int) -> torch.Tensor:
     """The PoseidonG round trace of every slot (S1 on the card):
     (12, S) lane-major words in [0, 2^64) -> (16, n) canonical, the
@@ -102,16 +138,23 @@ def round_trace(states: torch.Tensor, n: int) -> torch.Tensor:
         return round_trace_plain(states, n)
     if states.device.type != "cuda":
         raise RuntimeError(f"round_trace: unsupported device {states.device}")
-    st = states.contiguous()
+    if not slots:
+        return torch.zeros((TRACE_COLS, n), dtype=torch.int64,
+                           device=states.device)
+    return _launch_trace(states.contiguous(), n)
+
+
+def _launch_trace(st: torch.Tensor, n: int, run: int = 0) -> torch.Tensor:
+    """One launch of S1 on a contiguous CUDA (12, S) state, S >= 1, with
+    `run` slots a lane (``trace_plan``; 0: the library's choice)."""
+    slots = st.shape[1]
     out = torch.empty((TRACE_COLS, n), dtype=torch.int64, device=st.device)
-    out[:, slots * SLOT_ROWS:] = 0
-    if slots:
-        lib = poseidon_cuda._lib()
-        with torch.cuda.device(st.device):
-            code = lib.merlin_poseidon_trace(st.data_ptr(), out.data_ptr(),
-                                             slots, n, cuda_build.stream_ptr())
-        LAUNCHES["round_trace"] += 1
-        cuda_build.check(code, "round_trace launch")
+    with torch.cuda.device(st.device):
+        code = poseidon_cuda._lib().merlin_poseidon_trace(
+            st.data_ptr(), out.data_ptr(), slots, n, run,
+            cuda_build.stream_ptr())
+    LAUNCHES["round_trace"] += 1
+    cuda_build.check(code, "round_trace launch")
     return out
 
 

@@ -145,8 +145,10 @@ def lib() -> ctypes.CDLL:
             cdll.merlin_poseidon_set_constants.restype = ci
             cdll.merlin_permute.argtypes = [vp, vp, ll, vp]
             cdll.merlin_permute.restype = ci
-            cdll.merlin_poseidon_trace.argtypes = [vp, vp, ll, ll, vp]
+            cdll.merlin_poseidon_trace.argtypes = [vp, vp, ll, ll, ci, vp]
             cdll.merlin_poseidon_trace.restype = ci
+            cdll.merlin_poseidon_trace_plan.argtypes = [ll, ci, vp]
+            cdll.merlin_poseidon_trace_plan.restype = ci
             cdll.merlin_linear_hash.argtypes = [vp, vp, ll, ci, vp]
             cdll.merlin_linear_hash.restype = ci
             cdll.merlin_node_hash.argtypes = [vp, vp, ll, vp, ll, vp]

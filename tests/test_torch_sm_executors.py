@@ -333,3 +333,197 @@ def test_poseidon_g_raises_as_the_jax_package():
     with pytest.raises(ValueError):
         pge.PoseidonGExecutor().execute(np.zeros((2, 13), np.uint64), N_PG,
                                         device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# S1's geometry: slot counts at the edges of a warp's runs, dead rows
+# ---------------------------------------------------------------------------
+
+EDGE_SLOTS = (1, 31, 32, 33, 65)
+EDGE_DEAD = (0, 1, 30)
+
+
+def _edge_inputs(slots):
+    rng = np.random.default_rng(100 + slots)
+    st = rng.integers(0, 1 << 64, (slots, 12), dtype=np.uint64)
+    st[0, :3] = [P, (1 << 64) - 1, P - 1]
+    return st
+
+
+@pytest.mark.parametrize("dead", EDGE_DEAD)
+@pytest.mark.parametrize("slots", EDGE_SLOTS)
+def test_poseidon_g_edge_geometry_matches_the_jax_package(slots, dead):
+    """Every slot filled, n = 31 S + dead (odd n among them): round_trace
+    (S1's plain version here) and PoseidonGExecutor.execute against the
+    JAX package's columns."""
+    n = 31 * slots + dead
+    st = _edge_inputs(slots)
+    inputs = [[int(v) for v in row] for row in st]
+    want = jax_pge.PoseidonGExecutor().execute(copy.deepcopy(inputs), n)
+    trace = gl.to_u64(pge.round_trace(gl.from_u64(st.T.copy(), "cpu"), n))
+    for i, col in enumerate(pge.PoseidonGExecutor.COLUMNS[:pge.TRACE_COLS]):
+        np.testing.assert_array_equal(trace[i], want[col], err_msg=col)
+    got = pge.PoseidonGExecutor().execute(inputs, n, device="cpu")
+    for col in want:
+        np.testing.assert_array_equal(gl.to_u64(got[col]), want[col],
+                                      err_msg=col)
+    assert not trace[:, 31 * slots:].any()
+
+
+def _conflicts(words):
+    """The most distinct 64-bit words of one half-warp's shared-memory
+    access that fall in one bank pair (16 pairs of 4-byte banks)."""
+    pairs = {}
+    for w in set(words):
+        pairs.setdefault(w % 16, set()).add(w)
+    return max((len(v) for v in pairs.values()), default=1)
+
+
+def _model_trace(trace, slots, n, run):
+    """A python-int transcription of pg_trace_kernel's staging and stores,
+    on the rows a slot computes (taken from the plain trace): each lane's
+    run of slots, each row staged at ``pool_word``'s place after each step;
+    the line of the half-warp's lane at row 15 (found by arithmetic, as the
+    kernel finds it) and the general loop's lines; at each slot's end the
+    digest lines of the loop over a half's lanes and of the general loop.
+    Returns the output, the number of times each word was written and the
+    worst bank conflict of a half-warp's pool writes and of a store's pool
+    reads.  A read that finds another row in its pool entry (one
+    overwritten while it waited) fails."""
+    s_rows = 31 * slots
+    tri = 16 * 17
+    out = np.zeros((16, n), dtype=np.uint64)
+    writes = np.zeros((16, n), dtype=np.int64)
+    worst = 1
+    pool = {}
+
+    def put_line(half, at, dead, sl, e, store):
+        """lane e of a half stores row `at`'s 12 state words"""
+        for c in range(12):
+            if dead:
+                v = 0
+            else:
+                w = (c // 2) * tri + pge.pool_word(sl, e, c % 2)
+                assert pool[half, w] == (c, at)
+                store.setdefault(c, []).append(w)
+                v = trace[c, at]
+            out[c, at] = v
+            writes[c, at] += 1
+
+    def put_digest(at, h, v):
+        out[12 + h, at] = v
+        writes[12 + h, at] += 1
+
+    rows = 31 * run
+    inv = pow(rows % 16, 7, 16)
+    for t0 in range(0, -(-slots // run), 32):
+        lo = [(t0 + j) * rows for j in range(32)]
+        hi = [max(lo[j], min(lo[j] + rows, s_rows)) for j in range(32)]
+        dig = {}
+        for i in range(run):
+            base = [lo[j] + 31 * i for j in range(32)]
+            live = [base[j] < hi[j] for j in range(32)]
+            for r in range(31):
+                tau = i * 31 + r
+                f = [(base[j] + r) % 16 for j in range(32)]
+                for c in range(12):
+                    for half in (0, 16):
+                        words = []
+                        for j in range(half, half + 16):
+                            if live[j]:
+                                w = (c // 2) * tri + pge.pool_word(
+                                    tau % (16 - f[j]), f[j], c % 2)
+                                pool[half, w] = (c, base[j] + r)
+                                words.append(w)
+                        worst = max(worst, _conflicts(words))
+                for half in (0, 16):
+                    j15 = half + ((15 - tau - lo[half] % 16) * inv) % 16
+                    if live[j15]:
+                        assert f[j15] == 15
+                    if tau >= 15 and lo[j15] + 31 * i < s_rows:
+                        store = {}
+                        for e in range(16):
+                            put_line(half, lo[j15] + tau - 15 + e, False,
+                                     (tau + 1) % (16 - e), e, store)
+                        worst = max([worst] + [_conflicts(w) for w in store.values()])
+                    for src in range(half, half + 16):
+                        if not (live[src] and (tau < 15 if f[src] == 15 else
+                                               base[src] + r + 1 == hi[src])):
+                            continue
+                        src_row = lo[src] + tau
+                        fs = src_row % 16
+                        store = {}
+                        for e in range(16):
+                            at = src_row - fs + e
+                            if at < lo[src] or at >= n or hi[src] <= at < s_rows:
+                                continue
+                            dead = at >= hi[src]
+                            put_line(half, at, dead,
+                                     0 if dead else (tau - fs + e) % (16 - e), e,
+                                     store)
+                        worst = max([worst] + [_conflicts(w) for w in store.values()])
+            for j in range(32):
+                if live[j]:
+                    dig[j, i] = [int(v) for v in trace[:4, base[j] + 30]]
+            for half in (0, 16):
+                for src in range(half, half + 16):
+                    sb = base[src]
+                    sx1 = 15 - sb % 16
+                    if sb >= s_rows:
+                        continue
+                    if i > 0 or sx1 == 15:
+                        for e in range(16):
+                            at = sb + sx1 - 15 + e
+                            for h in range(4):
+                                put_digest(at, h, dig[src, i - (at < sb)][h])
+                    if sx1 + 16 <= 30:
+                        for e in range(16):
+                            for h in range(4):
+                                put_digest(sb + sx1 + 1 + e, h, dig[src, i][h])
+                for src in range(half, half + 16):
+                    if not live[src]:
+                        continue
+                    sb = base[src]
+                    x1 = 15 - sb % 16
+                    second = x1 + 16 <= 30
+                    tail = sb + 31 == hi[src] and (sb + 31) % 16 != 0
+                    for q in range(3):
+                        if not ((q == 0 and i == 0 and x1 != 15) or
+                                (tail and q == 1 + second)):
+                            continue
+                        for e in range(16):
+                            at = sb + x1 + 16 * q - 15 + e
+                            if at < lo[src] or at >= n or hi[src] <= at < s_rows:
+                                continue
+                            for h in range(4):
+                                put_digest(at, h, 0 if at >= hi[src] else
+                                           dig[src, i - (at < sb)][h])
+    z0 = min(n, -(-s_rows // 16) * 16)
+    writes[:, z0:] += 1
+    return out, writes, worst
+
+
+@pytest.mark.parametrize("run", (1, 3, 9))
+@pytest.mark.parametrize("dead", EDGE_DEAD)
+@pytest.mark.parametrize("slots", EDGE_SLOTS)
+def test_trace_kernel_store_model(slots, dead, run):
+    """The transcription of S1's stores writes every word of the plain
+    trace exactly once, the dead rows as zero; no row is overwritten in its
+    pool before its line is stored, and no pool write or read meets a bank
+    conflict."""
+    n = 31 * slots + dead
+    st = _edge_inputs(slots)
+    trace = gl.to_u64(pge.round_trace_plain(gl.from_u64(st.T.copy(), "cpu"),
+                                            n))
+    out, writes, worst = _model_trace(trace, slots, n, run)
+    np.testing.assert_array_equal(out, trace)
+    assert (writes == 1).all()
+    assert worst == 1
+
+
+def test_trace_pools_fill_their_array():
+    """pool_word: the two columns' pools of a pair fill its 17 x 16 array
+    without meeting, and row f's pool has 16 - f entries."""
+    words = [pge.pool_word(s, f, odd) for f in range(16)
+             for s in range(16 - f) for odd in (0, 1)]
+    assert sorted(words) == list(range(16 * 17))
